@@ -13,13 +13,30 @@ Phases, each printing one JSON line:
    kernel dtype, and no / all / first-and-last / a random 10 % of tiles
    changed; then, at the training path's launch shapes, checked again and
    timed with CUDA events beside the plain version and the bytes bound.
-4. ``train``: ``repro_torch.launch.train`` at the full width of
+4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
+   version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
+   32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
+   bf16 (2e-2), and on every prefill shape of the serve phase in bf16;
+   then timed with CUDA events beside the plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, used nowhere
+   in the port) at granite-3-2b's prefill shapes, each with its bound.
+5. ``train``: ``repro_torch.launch.train`` at the full width of
    granite-3-2b (d_model 2048, 32 heads, 8 KV heads, d_ff 8192, vocab
    49155) and 4 of its 40 layers: 4 rounds with a snapshot every 2, a
    fresh ``--resume`` for 2 more, and an uninterrupted 6-round run whose
    losses must equal the first two's bit for bit; the newest snapshot must
    restore to the live state's exact bytes, and the kernel's launch
    counter must show the diff snapshot going through it.
+6. ``serve``: granite-3-2b at full width and all 40 layers in bf16,
+   (a) through ``repro_torch.launch.serve`` (8 requests of 1024 prompt
+   tokens, 32 new tokens each, one batched prefill) and (b) through the
+   continuous-batching ``ServingEngine`` (4 slots, 8 requests of 97 to
+   2000 prompt tokens and 8 to 32 new tokens).  The flash-attention
+   counter must read one launch per layer and prefill (40 and 320), every
+   logit must be finite, each engine request's first token must equal an
+   isolated batch-1 prefill's, and one request's prefill and decode logits
+   must match ``lm.forward_train`` (the ``blocked_attention`` twin) over
+   its prompt and generated tokens.
 
 Then the ``kernels`` summary line and, last, ``{"ok": true, ...}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device it
@@ -43,9 +60,34 @@ import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM, NVIDIA data sheet: device memory rate, dense peak operations
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 REPLACES = "src/repro/kernels/delta_encode/kernel.py:151"
 SOURCE = "src/repro_torch/kernels/delta_encode/csrc/fused_delta.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attention/kernel.py:78"
+ATTN_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+
+# (B, T, S, H, K, hd, causal): tests/test_kernels.py's ATTN_CASES, then
+# the reduced configs' head size
+ATTN_CASES = [
+    (2, 256, 256, 4, 2, 64, True),
+    (1, 128, 384, 8, 8, 32, False),
+    (2, 200, 200, 6, 3, 64, True),
+    (1, 96, 96, 4, 1, 128, False),
+    (1, 64, 64, 2, 2, 256, True),
+    (2, 37, 37, 4, 2, 16, True),
+]
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the serve phase: (a) the launcher, one batched prefill; (b) the engine,
+# one batch-1 prefill per request
+LAUNCHER = {"requests": 8, "prompt_len": 1024, "gen": 32}
+ENGINE_PROMPTS = (97, 250, 511, 777, 1024, 1333, 1700, 2000)
+ENGINE_NEW = (8, 32, 16, 24, 12, 32, 20, 28)
+ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 2048 + 32
+# granite-3-2b's prefill heads, timed at B 1 and 8, T 512 to 2048
+GRANITE_HEADS = (32, 8, 64)
+TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 
 
 def emit(obj) -> None:
@@ -80,15 +122,19 @@ def phase_gpu() -> str:
 
 # -------------------------------------------------------------- build
 def phase_build() -> None:
+    """One ``nvcc`` per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.delta_encode import kernel
-    builders = {"fused_delta_tiles": kernel.build}
-    with ThreadPoolExecutor(len(builders)) as pool:
-        futs = {name: pool.submit(fn, True) for name, fn in builders.items()}
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    mods = {"fused_delta_tiles": kernel, "flash_attention": fa_kernel}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(m.build, True) for name, m in mods.items()}
         secs = {name: f.result() for name, f in futs.items()}
-    emit({"phase": "build", "seconds": secs,
-          "ptxas": kernel.build_log().splitlines()[-12:]})
+    emit({"phase": "build", "seconds": secs, "ptxas": {
+        name: [ln.strip() for ln in m.build_log().splitlines()
+               if "Used" in ln or "spill" in ln]
+        for name, m in mods.items()}})
 
 
 # ------------------------------------------------------------- kernel
@@ -232,6 +278,101 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
            "tolerance": "bit for bit", "max_abs_err": max_err, "launches_per_snapshot": len(launches),
            "snapshot_tiles": sum(launches), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes", "reps": reps}
+    emit(res)
+    return res
+
+
+# -------------------------------------------------------- attn_kernel
+def attn_work(b: int, t: int, s: int, h: int, kh: int, hd: int,
+              causal: bool, dtype: str) -> dict:
+    """Operations and bytes one flash-attention call needs, and its bound:
+    the larger of the operations at the card's peak for the dtype and the
+    bytes (q, k, v read once, o written once) at its memory rate."""
+    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    ops = 4 * b * h * hd * pairs             # QK^T and PV, 2 each per pair
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * hd * (2 * b * h * t + 2 * b * kh * s)
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _attn_inputs(b, t, s, h, kh, hd, dtype, gen):
+    import torch
+    return tuple(torch.randn(shape, device="cuda", generator=gen)
+                 .to(getattr(torch, dtype))
+                 for shape in ((b, h, t, hd), (b, kh, s, hd), (b, kh, s, hd)))
+
+
+def serve_prefill_shapes() -> list:
+    """(B, T, prefill calls) of the serve phase's main path."""
+    out = [(LAUNCHER["requests"], LAUNCHER["prompt_len"], 1)]
+    return out + [(1, t, ENGINE_PROMPTS.count(t))
+                  for t in sorted(set(ENGINE_PROMPTS))]
+
+
+def phase_attn_kernel(n_layers: int, reps: int = 5) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, kh, hd = GRANITE_HEADS
+    checks = [(case, dtype) for case in ATTN_CASES
+              for dtype in ("float32", "bfloat16")]
+    checks += [((b, t, t, h, kh, hd, True), "bfloat16")
+               for b, t, _ in serve_prefill_shapes()]
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for (b, t, s, nh, nkh, d, causal), dtype in checks:
+        q, k, v = _attn_inputs(b, t, s, nh, nkh, d, dtype, gen)
+        out = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        max_err[dtype] = max(max_err[dtype], err)
+        tol = ATTN_TOL[dtype]
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention != plain: {(b, t, s, nh, nkh, d, causal)} "
+              f"{dtype}, max abs err {err}")
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+
+    def timed(b, t):
+        q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen)
+        row = {"B": b, "T": t, "ms": _time_ms(
+            lambda: flash_attention(q, k, v, causal=True), reps)}
+        row["plain_ms"] = _time_ms(
+            lambda: attention_ref(q, k, v, causal=True), reps)
+        row["library_ms"] = _time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)
+        row.update(attn_work(b, t, t, h, kh, hd, True, "bfloat16"))
+        del q, k, v
+        torch.cuda.empty_cache()
+        return row
+
+    shapes = [timed(b, t) for b, t in TIMED_SHAPES]
+    # the serve phase's main path: n_layers launches per prefill call
+    path = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "ops": 0, "bytes": 0}
+    for b, t, calls in serve_prefill_shapes():
+        row = timed(b, t)
+        n = calls * n_layers
+        path["launches"] += n
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                    "bytes"):
+            path[key] += n * row[key]
+    ops_ms = path["ops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    path["bound_by"] = ("operations" if ops_ms >= path["bytes"]
+                        / HBM_BYTES_PER_S * 1e3 else "bytes")
+    res = {"phase": "attn_kernel", "name": "flash_attention",
+           "cases": len(checks), "tolerance": ATTN_TOL,
+           "max_abs_err": max_err, "reps": reps, "shapes": shapes,
+           "serve_path": path}
     emit(res)
     return res
 
@@ -392,24 +533,260 @@ def phase_train(cfg, workdir: Path) -> dict:
     return res
 
 
+# -------------------------------------------------------------- serve
+def _checked(fn, flag):
+    """Wrap a prefill or decode step: AND the finiteness of its logits
+    into ``flag`` on the device (no synchronisation)."""
+    import torch
+
+    def step(*a):
+        logits, caches = fn(*a)
+        flag.logical_and_(torch.isfinite(logits).all())
+        return logits, caches
+    return step
+
+
+def _isolated(cfg, run, params, prompt, n_new, max_len, forced=None):
+    """Greedy batch-1 generation outside the engine; -> (the greedy token
+    at each position, the logits that chose it).  With ``forced``, those
+    tokens are fed instead of the greedy ones (teacher forcing)."""
+    import torch
+
+    from repro_torch.models import api
+    prefill = api.make_prefill_step(cfg, max_len, run)
+    decode = api.make_decode_step(cfg, run)
+    lg, caches = prefill(params, {"tokens": prompt[None, :]})
+    logits = [lg[0]]
+    out = [int(torch.argmax(lg[0, :cfg.vocab_size]))]
+    for i in range(n_new - 1):
+        fed = out[-1] if forced is None else forced[i]
+        lg, caches = decode(params, caches, {
+            "tokens": torch.tensor([[fed]], device="cuda"),
+            "index": len(prompt) + i})
+        logits.append(lg[0, 0])
+        out.append(int(torch.argmax(lg[0, 0, :cfg.vocab_size])))
+    return out, torch.stack(logits)
+
+
+def _trace(fn, top: int = 10) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: host wall time, device
+    time summed over kernels, the busy share (device / wall; the
+    profiler's own host cost lowers it), the number of kernels and of
+    host-side aten ops (nested ones included), and the kernels that took
+    most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "aten_ops": sum(e.count for e in rows
+                            if e.device_type == DeviceType.CPU
+                            and e.key.startswith("aten::")),
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in kernels[:top]]}
+
+
+def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
+    """``forward_tol``, relative to the largest |logit|: bf16 activations
+    keep 8 significant bits, so each of the 40 layers adds noise of about
+    2**-8 of the residual stream, rounded at other places on the two
+    routes (the kernel keeps its probabilities in f32, the twin rounds
+    them to bf16; decode multiplies one row at a time, forward_train all
+    rows at once); summed over 40 layers and maximised over 12 x 49k
+    logits that comes to a few percent (4.2 % measured on the card).  A
+    wrong head mapping, mask or cache row moves logits by their whole
+    scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import api, lm
+    from repro_torch.serving.engine import Request, ServingEngine
+    res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": "bfloat16"}
+
+    # ---- (a) the launcher: every count to 0 just before, read just after
+    args = serve.parse_args([
+        "--requests", str(LAUNCHER["requests"]),
+        "--prompt-len", str(LAUNCHER["prompt_len"]),
+        "--gen", str(LAUNCHER["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    server = serve.build_server(cfg, args)
+    res["params"] = sum(p.numel() for p in tu.leaves(server.params))
+    res["build_peak_gb"] = _peak_gb()
+    flash_attention.launches = 0
+    summ = serve.serve(server, args)
+    launches_a = flash_attention.launches
+    res["launcher"] = {
+        "requests": args.requests, "prompt_len": args.prompt_len,
+        "gen": args.gen, "prefill_s": summ["prefill_s"],
+        "decode_s": summ["decode_s"],
+        "decode_tokens_per_s": summ["decode_tokens_per_s"],
+        "launches": launches_a, "peak_gb": _peak_gb()}
+    check(launches_a == cfg.n_layers,
+          f"launcher: {launches_a} flash_attention launches, expected "
+          f"{cfg.n_layers} (one per layer of the one prefill)")
+    check(summ["logits_finite"], "launcher: non-finite logits")
+    check(np.asarray(summ["tokens"]).shape == (args.requests, args.gen),
+          "launcher: wrong token count")
+    params, run = server.params, server.run
+    del server, summ
+    _release()
+
+    # ---- (b) the engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, t).astype(np.int32)
+               for t in ENGINE_PROMPTS]
+    engine = ServingEngine(cfg, params, slots=ENGINE_SLOTS,
+                           max_len=ENGINE_MAX_LEN, run=run)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    engine._prefill = _checked(engine._prefill, finite)
+    engine._decode = _checked(engine._decode, finite)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [Request(i, p, n) for i, (p, n) in
+            enumerate(zip(prompts, ENGINE_NEW))]
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run_queue(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_b = flash_attention.launches
+    by_id = {r.request_id: r for r in done}
+    n_tokens = sum(len(r.output) for r in done)
+    res["engine"] = {
+        "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN,
+        "prompt_lens": list(ENGINE_PROMPTS), "new_tokens": list(ENGINE_NEW),
+        "wall_s": wall, "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
+        "ttft_s": [by_id[i].first_token_s for i in range(len(reqs))],
+        "done_s": [by_id[i].done_s for i in range(len(reqs))],
+        "decode_steps": engine.stats["decode_steps"],
+        "prefills": engine.stats["prefills"],
+        "launches": launches_b, "peak_gb": _peak_gb()}
+    check(launches_b == cfg.n_layers * len(reqs),
+          f"engine: {launches_b} flash_attention launches, expected "
+          f"{cfg.n_layers * len(reqs)}")
+    check(engine.stats["served"] == len(reqs),
+          f"engine served {engine.stats['served']}")
+    check(bool(finite), "engine: non-finite logits")
+    check(all(len(by_id[i].output) == n for i, n in enumerate(ENGINE_NEW)),
+          "engine: wrong token counts")
+    del engine
+    _release()
+
+    # ---- (c) against isolated batch-1 generation and forward_train.
+    # Batched decode is not batch-invariant on cuBLAS, so later tokens are
+    # only counted: free-running (one flip changes every later token) and
+    # teacher-forced (fed the engine's tokens, each position on its own).
+    agree = forced_agree = total = 0
+    for i, prompt in enumerate(prompts):
+        mine = by_id[i].output
+        out, logits = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
+                                ENGINE_MAX_LEN)
+        check(bool(torch.isfinite(logits).all()),
+              f"isolated request {i}: non-finite logits")
+        check(out[0] == mine[0],
+              f"request {i}: engine first token {mine[0]} != isolated "
+              f"prefill's {out[0]}")
+        agree += sum(a == b for a, b in zip(out[1:], mine[1:]))
+        forced, _ = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
+                              ENGINE_MAX_LEN, forced=mine)
+        forced_agree += sum(a == b for a, b in zip(forced[1:], mine[1:]))
+        total += len(out) - 1
+        if i == ENGINE_PROMPTS.index(1024):
+            check_i, check_out, check_logits = i, out, logits
+    res["later_tokens_agree_with_isolated"] = {
+        "free_running": agree / total,
+        "teacher_forced": forced_agree / total, "positions": total}
+    # one request: prefill (kernel) and decode logits against the twin
+    seq = np.concatenate([prompts[check_i],
+                          np.asarray(check_out[:-1], np.int32)])
+    with torch.no_grad():
+        full, _ = lm.forward_train(
+            params, cfg, torch.as_tensor(seq, device="cuda")[None], run)
+    start = len(prompts[check_i]) - 1
+    want = full[0, start:start + len(check_out)].float()
+    got = check_logits.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    res["forward_train_check"] = {
+        "request": check_i, "positions": len(check_out),
+        "max_abs_err": err, "logit_scale": scale,
+        "rel_err": err / scale, "tolerance": forward_tol,
+        "rms_rel_err": float((got - want).square().mean().sqrt()
+                             / want.square().mean().sqrt()),
+        "argmax_agree": float((got[:, :cfg.vocab_size].argmax(-1)
+                               == want[:, :cfg.vocab_size].argmax(-1))
+                              .float().mean())}
+    check(err <= forward_tol * scale,
+          f"prefill/decode logits vs forward_train: max abs err {err} "
+          f"> {forward_tol} x logit scale {scale}")
+    del full
+
+    # ---- (d) where the time goes: one batch-1 prefill of that request's
+    # prompt, then 8 decode steps, each traced
+    prefill = api.make_prefill_step(cfg, ENGINE_MAX_LEN, run)
+    decode = api.make_decode_step(cfg, run)
+    prompt, box = prompts[check_i], {}
+
+    def do_prefill():
+        box["lg"], box["caches"] = prefill(params,
+                                           {"tokens": prompt[None, :]})
+
+    def do_decode():
+        tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+        for j in range(8):
+            box["lg"], box["caches"] = decode(
+                params, box["caches"],
+                {"tokens": tok, "index": len(prompt) + j})
+    res["trace"] = {"prefill_T%d" % len(prompt): _trace(do_prefill),
+                    "decode_8_steps_B1": _trace(do_decode)}
+    del params, box
+    _release()
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default="build,kernel,train")
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--phases",
+                    default="build,kernel,attn_kernel,train,serve")
+    ap.add_argument("--layers", type=int, default=4,
+                    help="depth of the train phase")
+    ap.add_argument("--serve-layers", type=int, default=40,
+                    help="depth of the serve phase (granite-3-2b has 40)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     cfg = granite_full_width(args.layers)
+    serve_cfg = granite_full_width(args.serve_layers)
 
     phase_gpu()
     if "build" in phases:
         phase_build()
     kern = phase_kernel(cfg) if "kernel" in phases else None
+    attn = (phase_attn_kernel(serve_cfg.n_layers)
+            if "attn_kernel" in phases else None)
     tr = None
     if "train" in phases:
         workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -417,13 +794,25 @@ def main(argv=None) -> int:
             tr = phase_train(cfg, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-    if kern is not None and tr is not None:
+    sv = phase_serve(serve_cfg) if "serve" in phases else None
+    if None not in (kern, attn, tr, sv):
+        path = attn["serve_path"]
+        launches = sv["launcher"]["launches"] + sv["engine"]["launches"]
+        check(launches == path["launches"],
+              f"serve path launches {launches} != {path['launches']} timed")
         emit({"kernels": [{
             "name": "fused_delta_tiles", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": tr["launches"],
             "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
             "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}]})
+            "bound_by": "bytes", "library_ms": None}, {
+            "name": "flash_attention", "route": "cuda",
+            "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+            "launches": launches,
+            "max_abs_err": max(attn["max_abs_err"].values()),
+            "ms": path["ms"], "plain_ms": path["plain_ms"],
+            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+            "library_ms": path["library_ms"]}]})
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})

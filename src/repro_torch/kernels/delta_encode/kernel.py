@@ -16,14 +16,11 @@ no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import build_library, read_log
 from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
 
 LANE = 1024
@@ -34,46 +31,19 @@ _SRC = Path(__file__).with_name("csrc") / "fused_delta.cu"
 _BUILD = Path(__file__).with_name("build")
 _LIB_PATH = _BUILD / "libfused_delta.so"
 _LOG_PATH = _BUILD / "nvcc.log"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the fused delta kernel")
-    return str(path)
 
 
 def build(force: bool = False) -> float:
     """Compile ``csrc/fused_delta.cu`` into ``build/libfused_delta.so``
     unless an up-to-date library is there.  Returns the build seconds."""
-    if (not force and _LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime):
-        return 0.0
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    _LOG_PATH.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return time.perf_counter() - t0
+    return build_library(_SRC, _LIB_PATH, _LOG_PATH, force)
 
 
 def build_log() -> str:
     """The last build's compiler output (ptxas register and shared-memory
     use per kernel)."""
-    return _LOG_PATH.read_text() if _LOG_PATH.exists() else ""
+    return read_log(_LOG_PATH)
 
 
 def _load():

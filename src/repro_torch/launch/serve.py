@@ -1,0 +1,137 @@
+"""V-BOINC serving launcher (PyTorch port of ``repro.launch.serve``).
+
+A request queue is batched, prefilled once (attention in the
+flash-attention kernel on the card), then decoded token by token with the
+KV caches:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --requests 8 --prompt-len 32 --gen 16 --device cpu
+
+The CLI serves ``reduced(get_arch(arch))``; ``build_server`` takes any
+``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b at full width).  Runs
+on ``cuda`` unless ``--device cpu`` is given; with no GPU and no such
+request it stops with an error.  On the card it takes the train launcher's
+deterministic settings.  Sampling at ``--temperature`` > 0 draws from a
+``torch.Generator`` seeded with ``--seed``, so its tokens differ from the
+reference's ``jax.random`` draws; greedy decoding (the default) does not
+sample.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, get_arch, reduced
+from repro_torch.distributed.sharding import init_tree
+from repro_torch.launch.train import resolve_device
+from repro_torch.models import api
+from repro_torch.models.lm import RunConfig, cast_tree
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    return ap.parse_args(argv)
+
+
+@dataclass
+class Server:
+    """What ``build_server`` sets up and ``serve`` drives."""
+    cfg: ArchConfig
+    device: torch.device
+    run: RunConfig
+    params: dict          # in the compute dtype, cast once
+    prefill: object
+    decode: object
+
+
+def build_server(cfg: ArchConfig, args: argparse.Namespace) -> Server:
+    """Params from ``--seed`` on the device, cast once to the compute
+    dtype, and the prefill and decode steps for prompts of
+    ``--prompt-len`` plus ``--gen`` new tokens."""
+    device = resolve_device(args.device)
+    run = RunConfig(remat="none", block_kv=128, ssm_chunk=32)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = cast_tree(init_tree(api.param_specs(cfg), gen, device=device),
+                       run.compute_dtype)
+    max_len = args.prompt_len + args.gen
+    return Server(cfg, device, run, params,
+                  api.make_prefill_step(cfg, max_len, run),
+                  api.make_decode_step(cfg, run))
+
+
+def serve(server: Server, args: argparse.Namespace) -> dict:
+    """Prefill ``--requests`` prompts of ``--prompt-len`` random tokens as
+    one batch, then decode ``--gen`` - 1 more tokens; -> summary."""
+    cfg, dev = server.cfg, server.device
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (args.requests, args.prompt_len)).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def sample(lg):
+        lg = lg[..., :cfg.vocab_size]
+        if args.temperature <= 0:
+            return torch.argmax(lg, dim=-1)
+        probs = torch.softmax(lg.float() / args.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = server.prefill(server.params, {"tokens": prompts})
+    sync()
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+
+    tok = sample(logits)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, caches = server.decode(server.params, caches,
+                                       {"tokens": tok,
+                                        "index": args.prompt_len + i})
+        finite &= torch.isfinite(logits).all()
+        tok = sample(logits[:, 0])[:, None]
+        generated.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+
+    out_tokens = torch.cat(generated, dim=1).cpu().numpy()
+    tps = args.requests * (args.gen - 1) / max(t_decode, 1e-9)
+    summary = {
+        "arch": cfg.name, "device": str(dev), "requests": args.requests,
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "decode_tokens_per_s": tps,
+        "logits_finite": bool(finite),
+        "sample_output": out_tokens[0, :8].tolist(),
+        "tokens": out_tokens.tolist(),
+    }
+    print(json.dumps({k: v for k, v in summary.items() if k != "tokens"},
+                     indent=2))
+    return summary
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    cfg = reduced(get_arch(args.arch))
+    return serve(build_server(cfg, args), args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Model primitives: norms, rotary, blocked attention, SwiGLU MLP.
+"""Model primitives: norms, rotary, blocked and decode attention, SwiGLU.
 
 Plain functions on tensors, autograd-able, with the reference's layouts
 (q (B, T, H, hd), weights (d, h, hd)).  Attention is the online-softmax
@@ -128,6 +128,33 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]             # (B,H,T,hd)
     return out.transpose(1, 2).to(q.dtype)                        # (B,T,H,hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, kv_len: torch.Tensor,
+                     window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-step attention over a full cache (no blocking).
+
+    q: (B, 1, H, hd); caches: (B, S, H, hd) (GQA-repeated, bf16 in the
+    serving path); kv_len: (B,).  Both products accumulate in float32 on
+    float32 copies of their inputs, and the probabilities are rounded to
+    the cache's dtype before P·V, as in the reference.
+    """
+    hd = q.shape[-1]
+    s = k_cache.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(),
+                          k_cache.float()) * scale
+    pos_k = torch.arange(s, dtype=torch.int32, device=q.device)
+    mask = pos_k[None, :] < kv_len[:, None]                       # (B,S)
+    if window:  # sliding-window: only the last `window` positions attend
+        mask &= pos_k[None, :] >= kv_len[:, None] - window
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

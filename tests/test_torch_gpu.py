@@ -4,8 +4,12 @@ Marked ``gpu``: each test skips without a CUDA device.  On the card run
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.  This file imports
 no JAX, so it runs where only PyTorch is installed; the CPU side it
 compares with is itself held against JAX by the other
-``tests/test_torch_*.py`` files.  Tolerance: none, bit for bit, since the
-probe is an integer XOR and the launcher is deterministic on the card.
+``tests/test_torch_*.py`` files.  Tolerances: none for the delta probe
+and the train launcher, bit for bit, since the probe is an integer XOR and
+the launcher is deterministic on the card; for the flash-attention kernel
+against its plain version on the card, ``tests/test_kernels.py``'s 2e-5
+(f32: the same arithmetic in another order) and 2e-2 (bf16: the output is
+rounded to bf16, so an element may sit one bf16 step apart).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.kernels.delta_encode import ops
 from repro_torch.kernels.delta_encode.kernel import (as_i32_tiles,
                                                      fused_delta_tiles)
 from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -127,3 +133,70 @@ def test_launcher_resume_is_bit_exact_on_the_card(cuda, tmp_path):
     full = train.main(["--steps", "6", "--snapshot-every", "2"])
     assert a["device"].startswith("cuda")
     assert a["losses"] + r["losses"] == full["losses"]
+
+
+ATTN_CASES = [
+    # (B, T, S, H, K, hd, causal): tests/test_kernels.py's cases, then the
+    # reduced configs' hd 16 and granite-3-2b's prefill heads
+    (2, 256, 256, 4, 2, 64, True),
+    (1, 128, 384, 8, 8, 32, False),
+    (2, 200, 200, 6, 3, 64, True),
+    (1, 96, 96, 4, 1, 128, False),
+    (1, 64, 64, 2, 2, 256, True),
+    (2, 37, 37, 4, 2, 16, True),
+    (1, 333, 333, 32, 8, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_matches_plain_version(cuda, case, dtype, tol):
+    b, t, s, h, kh, hd, causal = case
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(cuda)
+               for shape in ((b, h, t, hd), (b, kh, s, hd), (b, kh, s, hd)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_masks_keys_past_s_valid(cuda):
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn((1, 4, 100, 32), generator=gen).to(cuda)
+    k, v = (torch.randn((1, 2, 128, 32), generator=gen).to(cuda)
+            for _ in range(2))
+    out = flash_attention(q, k, v, causal=False, s_valid=100)
+    want = attention_ref(q, k[:, :, :100], v[:, :, :100], causal=False)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+def test_engine_on_the_card_prefills_through_the_kernel(cuda):
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = reduced(get_arch("granite-3-2b"))
+    params = init_tree(api.param_specs(cfg),
+                       torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    run = RunConfig(remat="none", compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, plen)
+                    .astype(np.int32), gen)
+            for i, (plen, gen) in enumerate([(8, 6), (12, 4), (5, 8)])]
+    flash_attention.launches = 0
+    engine = ServingEngine(cfg, params, slots=2, max_len=64, run=run)
+    done = engine.run_queue(reqs)
+    assert flash_attention.launches == cfg.n_layers * len(reqs)
+    assert engine.stats["served"] == len(reqs)
+    prefill = api.make_prefill_step(cfg, 64, run)
+    for req in done:
+        logits, _ = prefill(engine.params, {"tokens": req.prompt[None, :]})
+        assert req.output[0] == int(torch.argmax(logits[0, :cfg.vocab_size]))
+        assert len(req.output) == req.max_new_tokens
