@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # everything, as the check runs it
     python3 chip_smoke.py --phases build,kernel --layers 2
+    python3 chip_smoke.py --phases build,ssm_kernel,serve_ssm --ssm-layers 2
 
 Phases, each printing one JSON line:
 
@@ -16,10 +17,11 @@ Phases, each printing one JSON line:
 4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
-   bf16 (2e-2), and on every prefill shape of the serve phase in bf16;
-   then timed with CUDA events beside the plain version and
-   ``scaled_dot_product_attention`` (the library yardstick, used nowhere
-   in the port) at granite-3-2b's prefill shapes, each with its bound.
+   bf16 (2e-2), and on every prefill shape of the serve and serve_ssm
+   phases in bf16; then timed with CUDA events beside the plain version
+   and ``scaled_dot_product_attention`` (the library yardstick, used
+   nowhere in the port) at granite-3-2b's prefill shapes and at every
+   prefill shape of those phases, each with its bound.
 5. ``train``: ``repro_torch.launch.train`` at the full width of
    granite-3-2b (d_model 2048, 32 heads, 8 KV heads, d_ff 8192, vocab
    49155) and 4 of its 40 layers: 4 rounds with a snapshot every 2, a
@@ -32,15 +34,33 @@ Phases, each printing one JSON line:
    tokens, 32 new tokens each, one batched prefill) and (b) through the
    continuous-batching ``ServingEngine`` (4 slots, 8 requests of 97 to
    2000 prompt tokens and 8 to 32 new tokens).  The flash-attention
-   counter must read one launch per layer and prefill (40 and 320), every
-   logit must be finite, each engine request's first token must equal an
-   isolated batch-1 prefill's, and one request's prefill and decode logits
-   must match ``lm.forward_train`` (the ``blocked_attention`` twin) over
-   its prompt and generated tokens.
+   counter must read one launch per layer and prefill (40 and 320) and
+   the scan's none, every logit must be finite, each engine request's
+   first token must equal an isolated batch-1 prefill's, and one
+   request's prefill and decode logits must match ``lm.forward_train``
+   (the ``blocked_attention`` twin) over its prompt and generated tokens.
+7. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+   card, y and the final state h, on ``tests/test_kernels.py``'s
+   ``SSM_CASES`` (N 4 to 16, ragged T and Di) in f32 (2e-4) and bf16
+   (2e-2 for y) and on every prefill shape of the serve_ssm phase; then
+   timed with CUDA events beside the plain version and the bound at
+   falcon-mamba-7b's Di 8192 and N 16 (B 1 and 8, T 512 to 2048) and at
+   every prefill shape of the serve_ssm phase.
+8. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+   vocab 65024) at all 64 layers in bf16 through the launcher and the
+   engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
+   heads, d_inner 3200, N 16) at all 32 layers through the engine, with
+   the same checks against isolated prefills and the twin
+   (``forward_train``: the chunked associative scan).  The scan's counter
+   must read 64 and 512 for falcon and 256 for hymba, and the attention
+   kernel's none for falcon and 256 for hymba.
 
-Then the ``kernels`` summary line and, last, ``{"ok": true, ...}``.  Any
-failed check exits non-zero before that line.  Without a CUDA device it
-exits non-zero at once.
+Then a ``phase_seconds`` line (each phase's wall time), the ``kernels``
+summary line (each kernel's launches on the main paths, with its time,
+the plain version's and the bound summed over those launches) and,
+last, ``{"ok": true, ...}``.  Any failed check exits
+non-zero before that line.  Without a CUDA device it exits non-zero at
+once.
 """
 from __future__ import annotations
 
@@ -49,6 +69,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -67,6 +88,8 @@ REPLACES = "src/repro/kernels/delta_encode/kernel.py:151"
 SOURCE = "src/repro_torch/kernels/delta_encode/csrc/fused_delta.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention/kernel.py:78"
 ATTN_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSM_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:57"
+SSM_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 
 # (B, T, S, H, K, hd, causal): tests/test_kernels.py's ATTN_CASES, then
 # the reduced configs' head size
@@ -85,9 +108,17 @@ LAUNCHER = {"requests": 8, "prompt_len": 1024, "gen": 32}
 ENGINE_PROMPTS = (97, 250, 511, 777, 1024, 1333, 1700, 2000)
 ENGINE_NEW = (8, 32, 16, 24, 12, 32, 20, 28)
 ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 2048 + 32
-# granite-3-2b's prefill heads, timed at B 1 and 8, T 512 to 2048
+# granite-3-2b's prefill heads and falcon-mamba-7b's (Di, N), each kernel
+# timed alone at B 1 and 8, T 512 to 2048
 GRANITE_HEADS = (32, 8, 64)
+SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
+PHASES = ("build", "kernel", "attn_kernel", "train", "serve", "ssm_kernel",
+          "serve_ssm")
+# (B, T, Di, N): tests/test_kernels.py's SSM_CASES
+SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
+             (2, 128, 384, 4), (1, 33, 257, 16)]
+SSM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -127,7 +158,9 @@ def phase_build() -> None:
 
     from repro_torch.kernels.delta_encode import kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    mods = {"fused_delta_tiles": kernel, "flash_attention": fa_kernel}
+    from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+    mods = {"fused_delta_tiles": kernel, "flash_attention": fa_kernel,
+            "ssm_scan": ssm_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build, True) for name, m in mods.items()}
         secs = {name: f.result() for name, f in futs.items()}
@@ -305,14 +338,41 @@ def _attn_inputs(b, t, s, h, kh, hd, dtype, gen):
                  for shape in ((b, h, t, hd), (b, kh, s, hd), (b, kh, s, hd)))
 
 
-def serve_prefill_shapes() -> list:
-    """(B, T, prefill calls) of the serve phase's main path."""
-    out = [(LAUNCHER["requests"], LAUNCHER["prompt_len"], 1)]
+def prefill_calls(launcher: bool) -> list:
+    """(B, T, prefill calls) of one configuration's serve drive: the
+    launcher's one batched prefill (where it runs), then the engine's
+    batch-1 prefills."""
+    out = [(LAUNCHER["requests"], LAUNCHER["prompt_len"], 1)] \
+        if launcher else []
     return out + [(1, t, ENGINE_PROMPTS.count(t))
                   for t in sorted(set(ENGINE_PROMPTS))]
 
 
-def phase_attn_kernel(n_layers: int, reps: int = 5) -> dict:
+def heads(cfg) -> tuple:
+    return cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+
+def _sum_path(rows: list, dtype: str) -> dict:
+    """Sum (row, launches) pairs into one path total; the bound's term is
+    the larger of the summed operations and bytes."""
+    path = {"launches": 0}
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                        "bytes") if k in rows[0][0]]
+    for key in keys:
+        path[key] = 0.0
+    for row, n in rows:
+        path["launches"] += n
+        for key in keys:
+            path[key] += n * row[key]
+    ops_ms = path["ops"] / PEAK_OPS_PER_S[dtype] * 1e3
+    path["bound_by"] = ("operations" if ops_ms >= path["bytes"]
+                        / HBM_BYTES_PER_S * 1e3 else "bytes")
+    return path
+
+
+def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
+    """``paths``: {name: (cfg, launcher)} of the serve drives whose
+    prefills launch the kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -321,11 +381,11 @@ def phase_attn_kernel(n_layers: int, reps: int = 5) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    h, kh, hd = GRANITE_HEADS
     checks = [(case, dtype) for case in ATTN_CASES
               for dtype in ("float32", "bfloat16")]
-    checks += [((b, t, t, h, kh, hd, True), "bfloat16")
-               for b, t, _ in serve_prefill_shapes()]
+    for cfg, launcher in paths.values():
+        checks += [((b, t, t, *heads(cfg), True),
+                    "bfloat16") for b, t, _ in prefill_calls(launcher)]
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for (b, t, s, nh, nkh, d, causal), dtype in checks:
         q, k, v = _attn_inputs(b, t, s, nh, nkh, d, dtype, gen)
@@ -341,7 +401,8 @@ def phase_attn_kernel(n_layers: int, reps: int = 5) -> dict:
         del q, k, v, out, want
     torch.cuda.empty_cache()
 
-    def timed(b, t):
+    def timed(b, t, hs):
+        h, kh, hd = hs
         q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen)
         row = {"B": b, "T": t, "ms": _time_ms(
             lambda: flash_attention(q, k, v, causal=True), reps)}
@@ -355,24 +416,118 @@ def phase_attn_kernel(n_layers: int, reps: int = 5) -> dict:
         torch.cuda.empty_cache()
         return row
 
-    shapes = [timed(b, t) for b, t in TIMED_SHAPES]
-    # the serve phase's main path: n_layers launches per prefill call
-    path = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "ops": 0, "bytes": 0}
-    for b, t, calls in serve_prefill_shapes():
-        row = timed(b, t)
-        n = calls * n_layers
-        path["launches"] += n
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
-                    "bytes"):
-            path[key] += n * row[key]
-    ops_ms = path["ops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    path["bound_by"] = ("operations" if ops_ms >= path["bytes"]
-                        / HBM_BYTES_PER_S * 1e3 else "bytes")
     res = {"phase": "attn_kernel", "name": "flash_attention",
            "cases": len(checks), "tolerance": ATTN_TOL,
-           "max_abs_err": max_err, "reps": reps, "shapes": shapes,
-           "serve_path": path}
+           "max_abs_err": max_err, "reps": reps,
+           "shapes": [timed(b, t, GRANITE_HEADS) for b, t in TIMED_SHAPES]}
+    # each serve drive's main path: n_layers launches per prefill call
+    rows = {name: [(timed(b, t, heads(cfg)), calls * cfg.n_layers)
+                   for b, t, calls in prefill_calls(launcher)]
+            for name, (cfg, launcher) in paths.items()}
+    res["paths"] = {name: _sum_path(r, "bfloat16")
+                    for name, r in rows.items()}
+    res["path"] = _sum_path([x for r in rows.values() for x in r],
+                            "bfloat16")
+    emit(res)
+    return res
+
+
+# ----------------------------------------------------------- ssm_kernel
+def ssm_work(b: int, t: int, di: int, n: int, dtype: str) -> dict:
+    """Operations and bytes one selective-scan call needs, and its bound.
+    Bytes: x and dt read and y written in ``dtype``, bm, cm and a read and
+    the final h written in f32, each once.  Operations: per state element
+    and step dt*a, exp(.)*h, (dt x)*b, +, c*h and the sum over N (6), per
+    channel and step dt*x (1), all f32; the exponentials are counted
+    apart (``exps``), on the special-function units."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = esize * 3 * b * t * di + 4 * (2 * b * t * n + di * n
+                                           + b * di * n)
+    ops = 6 * b * t * di * n + b * t * di
+    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "exps": b * t * di * n, "bytes": nbytes,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _ssm_inputs(b, t, di, n, dtype, gen):
+    """``tests/test_kernels.py``'s distribution: dt small and positive,
+    a < 0; x and dt in ``dtype``, bm, cm and a in f32."""
+    import torch
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((b, t, di), device="cuda", generator=gen).to(dt_)
+    dt = (0.1 * torch.randn((b, t, di), device="cuda", generator=gen)
+          .abs()).to(dt_)
+    bm, cm = (torch.randn((b, t, n), device="cuda", generator=gen)
+              for _ in range(2))
+    a = -torch.randn((di, n), device="cuda", generator=gen).abs()
+    return x, dt, bm, cm, a
+
+
+def phase_ssm_kernel(paths: dict, reps: int = 5) -> dict:
+    """``ssm_scan`` against its plain version on ``SSM_CASES`` (f32 and
+    bf16) and on every prefill shape of ``paths`` (f32 x and dt, as
+    prefill calls it: y leaves the scan in f32); then timed with CUDA
+    events beside the plain version (one repetition: its Python loop
+    launches about 8 kernels a step) at falcon-mamba-7b's shapes and at
+    each path shape.  ``paths``: {name: (cfg, launcher)}."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = [(case, dtype) for case in SSM_CASES
+              for dtype in ("float32", "bfloat16")]
+    for cfg, launcher in paths.values():
+        checks += [((b, t, cfg.d_inner, cfg.ssm.d_state), "float32")
+                   for b, t, _ in prefill_calls(launcher)]
+    max_err = {"y_float32": 0.0, "y_bfloat16": 0.0, "h": 0.0}
+    for (b, t, di, n), dtype in checks:
+        args = _ssm_inputs(b, t, di, n, dtype, gen)
+        y, h = ssm_scan(*args, return_state=True)
+        y_ref, h_ref = ssm_scan_ref(*args, return_state=True)
+        torch.cuda.synchronize()
+        err = float((y.float() - y_ref.float()).abs().max())
+        err_h = float((h - h_ref).abs().max())
+        max_err["y_" + dtype] = max(max_err["y_" + dtype], err)
+        max_err["h"] = max(max_err["h"], err_h)
+        tol = SSM_TOL[dtype]
+        check(y.dtype == args[0].dtype and torch.allclose(
+            y.float(), y_ref.float(), rtol=tol, atol=tol),
+            f"ssm_scan y != plain: {(b, t, di, n)} {dtype}, max abs err "
+            f"{err}")
+        check(torch.allclose(h, h_ref, rtol=SSM_TOL["float32"],
+                             atol=SSM_TOL["float32"]),
+              f"ssm_scan h != plain: {(b, t, di, n)} {dtype}, max abs err "
+              f"{err_h}")
+        del args, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+
+    def timed(b, t, di, n):
+        args = _ssm_inputs(b, t, di, n, "float32", gen)
+        row = {"B": b, "T": t, "Di": di, "N": n,
+               "ms": _time_ms(lambda: ssm_scan(*args, return_state=True),
+                              reps),
+               "plain_ms": _time_ms(lambda: ssm_scan_ref(
+                   *args, return_state=True), 1)}
+        row.update(ssm_work(b, t, di, n, "float32"))
+        del args
+        torch.cuda.empty_cache()
+        return row
+
+    res = {"phase": "ssm_kernel", "name": "ssm_scan", "cases": len(checks),
+           "tolerance": SSM_TOL, "max_abs_err": max_err, "reps": reps,
+           "shapes": [timed(b, t, *SSM_TIMED_WIDTHS)
+                      for b, t in TIMED_SHAPES]}
+    rows = {name: [(timed(b, t, cfg.d_inner, cfg.ssm.d_state),
+                    calls * cfg.n_layers)
+                   for b, t, calls in prefill_calls(launcher)]
+            for name, (cfg, launcher) in paths.items()}
+    res["paths"] = {name: _sum_path(r, "float32")
+                    for name, r in rows.items()}
+    res["path"] = _sum_path([x for r in rows.values() for x in r],
+                            "float32")
     emit(res)
     return res
 
@@ -598,57 +753,61 @@ def _trace(fn, top: int = 10) -> dict:
                     for e in kernels[:top]]}
 
 
-def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
-    """``forward_tol``, relative to the largest |logit|: bf16 activations
-    keep 8 significant bits, so each of the 40 layers adds noise of about
-    2**-8 of the residual stream, rounded at other places on the two
-    routes (the kernel keeps its probabilities in f32, the twin rounds
-    them to bf16; decode multiplies one row at a time, forward_train all
-    rows at once); summed over 40 layers and maximised over 12 x 49k
-    logits that comes to a few percent (4.2 % measured on the card).  A
-    wrong head mapping, mask or cache row moves logits by their whole
-    scale."""
+def _launched(kernels: dict, fn):
+    """Run ``fn`` with every kernel's launch counter set to 0 just before;
+    -> (fn's result, {name: launches}) read just after."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def _check_launches(what: str, counts: dict, expected: dict) -> None:
+    check(counts == expected,
+          f"{what}: kernel launches {counts}, expected {expected} (one per "
+          "layer and prefill call of each kernel on the path)")
+
+
+def _serve_launcher(cfg, kernels: dict, expected: dict) -> tuple:
+    """(a) ``repro_torch.launch.serve`` on ``LAUNCHER``; -> (result,
+    params, run)."""
     import numpy as np
     import torch
 
     from repro_torch import tree as tu
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.launch import serve
-    from repro_torch.models import api, lm
-    from repro_torch.serving.engine import Request, ServingEngine
-    res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "dtype": "bfloat16"}
-
-    # ---- (a) the launcher: every count to 0 just before, read just after
     args = serve.parse_args([
         "--requests", str(LAUNCHER["requests"]),
         "--prompt-len", str(LAUNCHER["prompt_len"]),
         "--gen", str(LAUNCHER["gen"])])
     torch.cuda.reset_peak_memory_stats()
     server = serve.build_server(cfg, args)
-    res["params"] = sum(p.numel() for p in tu.leaves(server.params))
-    res["build_peak_gb"] = _peak_gb()
-    flash_attention.launches = 0
-    summ = serve.serve(server, args)
-    launches_a = flash_attention.launches
-    res["launcher"] = {
+    res = {"params": sum(p.numel() for p in tu.leaves(server.params)),
+           "build_peak_gb": _peak_gb()}
+    summ, counts = _launched(kernels, lambda: serve.serve(server, args))
+    res.update({
         "requests": args.requests, "prompt_len": args.prompt_len,
         "gen": args.gen, "prefill_s": summ["prefill_s"],
         "decode_s": summ["decode_s"],
         "decode_tokens_per_s": summ["decode_tokens_per_s"],
-        "launches": launches_a, "peak_gb": _peak_gb()}
-    check(launches_a == cfg.n_layers,
-          f"launcher: {launches_a} flash_attention launches, expected "
-          f"{cfg.n_layers} (one per layer of the one prefill)")
+        "launches": counts, "peak_gb": _peak_gb()})
+    _check_launches("launcher", counts, expected)
     check(summ["logits_finite"], "launcher: non-finite logits")
     check(np.asarray(summ["tokens"]).shape == (args.requests, args.gen),
           "launcher: wrong token count")
     params, run = server.params, server.run
     del server, summ
     _release()
+    return res, params, run
 
-    # ---- (b) the engine
+
+def _serve_engine(cfg, params, run, kernels: dict, expected: dict) -> tuple:
+    """(b) the continuous-batching engine on ``ENGINE_PROMPTS``; ->
+    (result, prompts, finished requests by id)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Request, ServingEngine
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, t).astype(np.int32)
                for t in ENGINE_PROMPTS]
@@ -661,15 +820,16 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reqs = [Request(i, p, n) for i, (p, n) in
             enumerate(zip(prompts, ENGINE_NEW))]
-    flash_attention.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run_queue(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches_b = flash_attention.launches
+
+    def drive():
+        t0 = time.perf_counter()
+        out = engine.run_queue(reqs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    (done, wall), counts = _launched(kernels, drive)
     by_id = {r.request_id: r for r in done}
     n_tokens = sum(len(r.output) for r in done)
-    res["engine"] = {
+    res = {
         "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN,
         "prompt_lens": list(ENGINE_PROMPTS), "new_tokens": list(ENGINE_NEW),
         "wall_s": wall, "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
@@ -677,10 +837,8 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
         "done_s": [by_id[i].done_s for i in range(len(reqs))],
         "decode_steps": engine.stats["decode_steps"],
         "prefills": engine.stats["prefills"],
-        "launches": launches_b, "peak_gb": _peak_gb()}
-    check(launches_b == cfg.n_layers * len(reqs),
-          f"engine: {launches_b} flash_attention launches, expected "
-          f"{cfg.n_layers * len(reqs)}")
+        "launches": counts, "peak_gb": _peak_gb()}
+    _check_launches("engine", counts, expected)
     check(engine.stats["served"] == len(reqs),
           f"engine served {engine.stats['served']}")
     check(bool(finite), "engine: non-finite logits")
@@ -688,32 +846,47 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
           "engine: wrong token counts")
     del engine
     _release()
+    return res, prompts, by_id
 
-    # ---- (c) against isolated batch-1 generation and forward_train.
-    # Batched decode is not batch-invariant on cuBLAS, so later tokens are
-    # only counted: free-running (one flip changes every later token) and
-    # teacher-forced (fed the engine's tokens, each position on its own).
+
+def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
+                  later_tokens: bool) -> dict:
+    """(c) each engine request against isolated batch-1 generation, and
+    one request's prefill and decode logits against ``lm.forward_train``
+    (the twins: ``blocked_attention``, the chunked associative scan).
+    Batched decode is not batch-invariant on cuBLAS, so later tokens are
+    only counted (with ``later_tokens``): free-running (one flip changes
+    every later token) and teacher-forced (fed the engine's tokens, each
+    position on its own)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    res = {}
+    check_i = ENGINE_PROMPTS.index(1024)
     agree = forced_agree = total = 0
     for i, prompt in enumerate(prompts):
         mine = by_id[i].output
-        out, logits = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
+        n_new = ENGINE_NEW[i] if later_tokens or i == check_i else 1
+        out, logits = _isolated(cfg, run, params, prompt, n_new,
                                 ENGINE_MAX_LEN)
         check(bool(torch.isfinite(logits).all()),
               f"isolated request {i}: non-finite logits")
         check(out[0] == mine[0],
               f"request {i}: engine first token {mine[0]} != isolated "
               f"prefill's {out[0]}")
-        agree += sum(a == b for a, b in zip(out[1:], mine[1:]))
-        forced, _ = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
-                              ENGINE_MAX_LEN, forced=mine)
-        forced_agree += sum(a == b for a, b in zip(forced[1:], mine[1:]))
-        total += len(out) - 1
-        if i == ENGINE_PROMPTS.index(1024):
-            check_i, check_out, check_logits = i, out, logits
-    res["later_tokens_agree_with_isolated"] = {
-        "free_running": agree / total,
-        "teacher_forced": forced_agree / total, "positions": total}
-    # one request: prefill (kernel) and decode logits against the twin
+        if i == check_i:
+            check_out, check_logits = out, logits
+        if later_tokens:
+            agree += sum(a == b for a, b in zip(out[1:], mine[1:]))
+            forced, _ = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
+                                  ENGINE_MAX_LEN, forced=mine)
+            forced_agree += sum(a == b for a, b in zip(forced[1:], mine[1:]))
+            total += len(out) - 1
+    if later_tokens:
+        res["later_tokens_agree_with_isolated"] = {
+            "free_running": agree / total,
+            "teacher_forced": forced_agree / total, "positions": total}
     seq = np.concatenate([prompts[check_i],
                           np.asarray(check_out[:-1], np.int32)])
     with torch.no_grad():
@@ -737,12 +910,18 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
           f"prefill/decode logits vs forward_train: max abs err {err} "
           f"> {forward_tol} x logit scale {scale}")
     del full
+    return res
 
-    # ---- (d) where the time goes: one batch-1 prefill of that request's
-    # prompt, then 8 decode steps, each traced
+
+def _serve_trace(cfg, run, params, prompt) -> dict:
+    """(d) where the time goes: one batch-1 prefill of ``prompt``, then 8
+    decode steps, each traced."""
+    import torch
+
+    from repro_torch.models import api
     prefill = api.make_prefill_step(cfg, ENGINE_MAX_LEN, run)
     decode = api.make_decode_step(cfg, run)
-    prompt, box = prompts[check_i], {}
+    box = {}
 
     def do_prefill():
         box["lg"], box["caches"] = prefill(params,
@@ -754,12 +933,108 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
             box["lg"], box["caches"] = decode(
                 params, box["caches"],
                 {"tokens": tok, "index": len(prompt) + j})
-    res["trace"] = {"prefill_T%d" % len(prompt): _trace(do_prefill),
-                    "decode_8_steps_B1": _trace(do_decode)}
-    del params, box
+    return {"prefill_T%d" % len(prompt): _trace(do_prefill),
+            "decode_8_steps_B1": _trace(do_decode)}
+
+
+def _path_kernels() -> dict:
+    """The serving path's kernel wrappers, by name."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+    return {"flash_attention": flash_attention, "ssm_scan": ssm_scan}
+
+
+def per_prefill(cfg) -> dict:
+    """Launches of each kernel per prefill call: one per layer where the
+    family has the block (attention: dense and hybrid; scan: SSM and
+    hybrid), none elsewhere."""
+    return {"flash_attention": cfg.n_layers * (cfg.family != "ssm"),
+            "ssm_scan": cfg.n_layers * (cfg.family in ("ssm", "hybrid"))}
+
+
+def _serve(cfg, launcher: bool, forward_tol: float,
+           later_tokens: bool) -> dict:
+    """One configuration through the serving path: (a) the launcher (or,
+    without it, ``build_server`` alone for the params), (b) the engine,
+    (c) the checks, (d) the trace.  Each kernel's counter must read one
+    launch per layer and prefill call where the family has its block, and
+    none where it has not."""
+    from repro_torch import tree as tu
+    from repro_torch.launch import serve
+    kernels, per_call = _path_kernels(), per_prefill(cfg)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": "bfloat16"}
+    if launcher:
+        res["launcher"], params, run = _serve_launcher(cfg, kernels,
+                                                       per_call)
+        res["params"] = res["launcher"].pop("params")
+    else:
+        _peak_gb()                                  # resets the peak
+        server = serve.build_server(cfg, serve.parse_args([]))
+        params, run = server.params, server.run
+        res["params"] = sum(p.numel() for p in tu.leaves(params))
+        res["build_peak_gb"] = _peak_gb()
+        del server
+    res["engine"], prompts, by_id = _serve_engine(
+        cfg, params, run, kernels,
+        {k: n * len(ENGINE_PROMPTS) for k, n in per_call.items()})
+    res.update(_serve_checks(cfg, run, params, prompts, by_id, forward_tol,
+                             later_tokens))
+    res["trace"] = _serve_trace(cfg, run, params,
+                                prompts[ENGINE_PROMPTS.index(1024)])
+    del params
     _release()
+    return res
+
+
+def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
+    """granite-3-2b.  ``forward_tol``, relative to the largest |logit|:
+    bf16 activations keep 8 significant bits, so each of the 40 layers
+    adds noise of about 2**-8 of the residual stream, rounded at other
+    places on the two routes (the kernel keeps its probabilities in f32,
+    the twin rounds them to bf16; decode multiplies one row at a time,
+    forward_train all rows at once); summed over 40 layers and maximised
+    over 12 x 49k logits that comes to a few percent (4.2 % measured on
+    the card).  A wrong head mapping, mask or cache row moves logits by
+    their whole scale."""
+    res = {"phase": "serve"}
+    res.update(_serve(cfg, launcher=True, forward_tol=forward_tol,
+                      later_tokens=True))
     emit(res)
     return res
+
+
+def phase_serve_ssm(falcon, hymba, forward_tol: float = 0.1) -> dict:
+    """falcon-mamba-7b through the launcher and the engine, then
+    hymba-1.5b through the engine, both at full width.  ``forward_tol`` as
+    for granite: the scan is f32 on both routes (sequential in the kernel,
+    associative in the twin), so what differs is the bf16 rounding of the
+    activations around it, over 64 and 32 layers.  Later tokens are not
+    counted here (granite's phase counts them): isolated generation runs
+    only where a check needs it."""
+    res = {"phase": "serve_ssm",
+           falcon.name: _serve(falcon, True, forward_tol, False),
+           hymba.name: _serve(hymba, False, forward_tol, False)}
+    emit(res)
+    return res
+
+
+def ssm_full_width(arch: str, n_layers: int):
+    """The registered config, only ``n_layers`` cut (0 keeps them all):
+    ``reduced`` would also shrink d_state and dt_rank."""
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers)
+                               or cfg.n_layers)
+
+
+def _kernel_row(name, source, replaces, launches, max_err, path) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": path["ms"],
+            "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"],
+            "library_ms": path.get("library_ms")}
 
 
 def main(argv=None) -> int:
@@ -768,54 +1043,91 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases",
-                    default="build,kernel,attn_kernel,train,serve")
+    ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--layers", type=int, default=4,
                     help="depth of the train phase")
     ap.add_argument("--serve-layers", type=int, default=40,
                     help="depth of the serve phase (granite-3-2b has 40)")
+    ap.add_argument("--ssm-layers", type=int, default=0,
+                    help="depth of the serve_ssm phase (0: all, 64 for "
+                         "falcon-mamba-7b and 32 for hymba-1.5b)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     cfg = granite_full_width(args.layers)
     serve_cfg = granite_full_width(args.serve_layers)
+    falcon = ssm_full_width("falcon-mamba-7b", args.ssm_layers)
+    hymba = ssm_full_width("hymba-1.5b", args.ssm_layers)
+    # the serve drives whose prefills launch each kernel: (cfg, launcher)
+    attn_paths = {"serve": (serve_cfg, True), "serve_ssm": (hymba, False)}
+    ssm_paths = {"serve_ssm": (falcon, True), "serve_ssm_hybrid":
+                 (hymba, False)}
 
-    phase_gpu()
-    if "build" in phases:
-        phase_build()
-    kern = phase_kernel(cfg) if "kernel" in phases else None
-    attn = (phase_attn_kernel(serve_cfg.n_layers)
-            if "attn_kernel" in phases else None)
-    tr = None
-    if "train" in phases:
+    def phase_train_in_tmp(cfg):
         workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
         try:
-            tr = phase_train(cfg, workdir)
+            return phase_train(cfg, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-    sv = phase_serve(serve_cfg) if "serve" in phases else None
-    if None not in (kern, attn, tr, sv):
-        path = attn["serve_path"]
-        launches = sv["launcher"]["launches"] + sv["engine"]["launches"]
-        check(launches == path["launches"],
-              f"serve path launches {launches} != {path['launches']} timed")
-        emit({"kernels": [{
-            "name": "fused_delta_tiles", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": tr["launches"],
-            "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-            "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}, {
-            "name": "flash_attention", "route": "cuda",
-            "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
-            "launches": launches,
-            "max_abs_err": max(attn["max_abs_err"].values()),
-            "ms": path["ms"], "plain_ms": path["plain_ms"],
-            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
-            "library_ms": path["library_ms"]}]})
-        emit({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}})
+
+    seconds = {}
+
+    def run(name, fn, *a):
+        """Run one phase if it was asked for; -> its result or None."""
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    phase_gpu()
+    run("build", phase_build)
+    kern = run("kernel", phase_kernel, cfg)
+    attn = run("attn_kernel", phase_attn_kernel, attn_paths)
+    tr = run("train", phase_train_in_tmp, cfg)
+    sv = run("serve", phase_serve, serve_cfg)
+    ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
+    sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
+    emit({"phase_seconds": seconds})
+    if None in (kern, attn, tr, sv, ssm, sv_ssm):
+        return 0
+    # the launches counted on each main path's run, against the launches
+    # each kernel phase timed
+    f_name, h_name = falcon.name, hymba.name
+    runs = {
+        "flash_attention": {
+            "serve": sv["launcher"]["launches"]["flash_attention"]
+            + sv["engine"]["launches"]["flash_attention"],
+            "serve_ssm": sv_ssm[h_name]["engine"]["launches"]
+            ["flash_attention"]},
+        "ssm_scan": {
+            "serve_ssm": sv_ssm[f_name]["launcher"]["launches"]["ssm_scan"]
+            + sv_ssm[f_name]["engine"]["launches"]["ssm_scan"],
+            "serve_ssm_hybrid": sv_ssm[h_name]["engine"]["launches"]
+            ["ssm_scan"]}}
+    for name, timed in (("flash_attention", attn["paths"]),
+                        ("ssm_scan", ssm["paths"])):
+        for path, n in runs[name].items():
+            check(n == timed[path]["launches"],
+                  f"{name}: {path} launched {n} times, "
+                  f"{timed[path]['launches']} timed")
+
+    emit({"kernels": [
+        _kernel_row("fused_delta_tiles", SOURCE, REPLACES, tr["launches"],
+                    kern["max_abs_err"], {
+                        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+                        "bound_ms": kern["bound_ms"], "bound_by": "bytes"}),
+        _kernel_row("flash_attention", ATTN_SOURCE, ATTN_REPLACES,
+                    sum(runs["flash_attention"].values()),
+                    max(attn["max_abs_err"].values()), attn["path"]),
+        _kernel_row("ssm_scan", SSM_SOURCE, SSM_REPLACES,
+                    sum(runs["ssm_scan"].values()),
+                    max(ssm["max_abs_err"].values()), ssm["path"])]})
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
     return 0
 
 

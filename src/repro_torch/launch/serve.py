@@ -1,20 +1,22 @@
 """V-BOINC serving launcher (PyTorch port of ``repro.launch.serve``).
 
-A request queue is batched, prefilled once (attention in the
-flash-attention kernel on the card), then decoded token by token with the
-KV caches:
+A request queue is batched, prefilled once (on the card, attention in the
+flash-attention kernel and the selective scan in the ``ssm_scan``
+kernel), then decoded token by token with the KV and SSM caches:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --prompt-len 32 --gen 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --device cpu
 
 The CLI serves ``reduced(get_arch(arch))``; ``build_server`` takes any
-``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b at full width).  Runs
-on ``cuda`` unless ``--device cpu`` is given; with no GPU and no such
-request it stops with an error.  On the card it takes the train launcher's
-deterministic settings.  Sampling at ``--temperature`` > 0 draws from a
-``torch.Generator`` seeded with ``--seed``, so its tokens differ from the
-reference's ``jax.random`` draws; greedy decoding (the default) does not
-sample.
+``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b, falcon-mamba-7b
+and hymba-1.5b at full width).  Runs on ``cuda`` unless ``--device cpu``
+is given; with no GPU and no such request it stops with an error.  On
+the card it takes the train launcher's deterministic settings.  Sampling
+at ``--temperature`` > 0 draws from a ``torch.Generator`` seeded with
+``--seed``, so its tokens differ from the reference's ``jax.random``
+draws; greedy decoding (the default) does not sample.
 """
 from __future__ import annotations
 

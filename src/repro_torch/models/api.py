@@ -45,6 +45,14 @@ def _require_decoder_only(cfg: ArchConfig) -> None:
                                   "ported to repro_torch")
 
 
+def _require_trainable(cfg: ArchConfig) -> None:
+    """The SSM and hybrid families serve but do not train yet: the scan
+    kernel has no backward (nor has the reference's)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"training the {cfg.family} family is "
+                                  "not yet ported to repro_torch")
+
+
 def _on(params, x) -> torch.Tensor:
     """A batch entry (numpy array, list or tensor) on the params' device."""
     return torch.as_tensor(x, device=params["embed"].device)
@@ -75,6 +83,7 @@ def make_eval_loss(cfg: ArchConfig, run: RunConfig = RunConfig()):
     ``tokens``/``labels`` (B, T) int arrays or tensors; they are moved to
     the params' device."""
     _require_decoder_only(cfg)
+    _require_trainable(cfg)
 
     def eval_loss(params, batch: dict):
         tokens = _on(params, batch["tokens"])

@@ -1,11 +1,13 @@
-"""Decoder-only language model, dense family: training, prefill, decode.
+"""Decoder-only language model, dense, SSM and hybrid families: training
+forward, prefill, decode.
 
 The layer weights stay stacked along a leading (L, ...) dim, exactly the
 reference's param tree, so snapshot keys and shapes match; the reference's
 ``lax.scan`` over that dim becomes a Python loop over ``p[i]`` slices.
 Caches are the reference's ``{"kv": KVCache(k, v)}`` with k and v stacked
-(L, B, S, K, hd) in bf16.  The SSM, hybrid and MoE blocks come with later
-slices of the port and raise here.
+(L, B, S, K, hd) in bf16, and ``{"ssm": SSMCache(conv, h)}`` stacked
+(L, B, d_conv-1, Di) and (L, B, Di, N) in f32; a hybrid carries both.
+The MoE blocks come with a later slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import TensorSpec, stack_specs
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.attention import KVCache
 
 
@@ -46,8 +48,8 @@ class RunConfig:
     compute_dtype: Any = torch.bfloat16
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family in ("ssm", "hybrid") or cfg.is_moe:
+def _require_no_moe(cfg: ArchConfig) -> None:
+    if cfg.is_moe:
         raise NotImplementedError(f"{cfg.family} blocks are not yet ported "
                                   "to repro_torch")
 
@@ -56,16 +58,29 @@ def _require_dense(cfg: ArchConfig) -> None:
 # Param specs
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ArchConfig) -> dict:
-    _require_dense(cfg)
-    return {"ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
-            "attn": attention.attn_specs(cfg),
-            "ln2": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
-            "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff)}
+    _require_no_moe(cfg)
+    out: dict = {"ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones")}
+    if cfg.family == "ssm":
+        out["ssm"] = ssm.ssm_specs(cfg)
+        return out
+    out["attn"] = attention.attn_specs(cfg)
+    if cfg.family == "hybrid":
+        out["ssm"] = ssm.ssm_specs(cfg)
+        out["norm_attn"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
+        out["norm_ssm"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
+    out["ln2"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
+    out["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff)
+    return out
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    _require_dense(cfg)
-    return {"kv": attention.cache_specs(cfg, batch, max_len)}
+    _require_no_moe(cfg)
+    out: dict = {}
+    if cfg.family != "ssm":
+        out["kv"] = attention.cache_specs(cfg, batch, max_len)
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssm"] = ssm.ssm_cache_specs(cfg, batch)
+    return out
 
 
 def lm_specs(cfg: ArchConfig) -> dict:
@@ -83,28 +98,50 @@ def lm_specs(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _block_train(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, causal: bool = True):
-    _require_dense(cfg)
-    xn = layers.rms_norm(x, p["ln1"], cfg.rms_eps)
-    x = x + attention.attn_train(p["attn"], xn, cfg, positions, causal=causal)
+def _mix(cfg: ArchConfig, p: dict, a: torch.Tensor,
+         s: torch.Tensor) -> torch.Tensor:
+    """The hybrid block's parallel heads: 0.5 (norm(attn) + norm(ssm))."""
+    return 0.5 * (layers.rms_norm(a, p["norm_attn"], cfg.rms_eps)
+                  + layers.rms_norm(s, p["norm_ssm"], cfg.rms_eps))
+
+
+def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     xn2 = layers.rms_norm(x, p["ln2"], cfg.rms_eps)
     m = p["mlp"]
     return x + layers.swiglu(xn2, m["w_gate"], m["w_up"], m["w_down"])
 
 
+def _block_train(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, causal: bool = True):
+    _require_no_moe(cfg)
+    xn = layers.rms_norm(x, p["ln1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        return x + ssm.ssm_train(p["ssm"], xn, cfg, run.ssm_chunk)
+    a = attention.attn_train(p["attn"], xn, cfg, positions, causal=causal)
+    if cfg.family == "hybrid":
+        x = x + _mix(cfg, p, a,
+                     ssm.ssm_train(p["ssm"], xn, cfg, run.ssm_chunk))
+    else:
+        x = x + a
+    return _mlp(cfg, p, x)
+
+
 def _block_decode(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
                   cache: dict, index: torch.Tensor):
-    _require_dense(cfg)
+    _require_no_moe(cfg)
     new_cache = {}
     xn = layers.rms_norm(x, p["ln1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        y, new_cache["ssm"] = ssm.ssm_decode(p["ssm"], xn, cfg, cache["ssm"])
+        return x + y, new_cache
     a, new_cache["kv"] = attention.attn_decode(p["attn"], xn, cfg,
                                                cache["kv"], index)
-    x = x + a
-    xn2 = layers.rms_norm(x, p["ln2"], cfg.rms_eps)
-    m = p["mlp"]
-    x = x + layers.swiglu(xn2, m["w_gate"], m["w_up"], m["w_down"])
-    return x, new_cache
+    if cfg.family == "hybrid":
+        s, new_cache["ssm"] = ssm.ssm_decode(p["ssm"], xn, cfg, cache["ssm"])
+        x = x + _mix(cfg, p, a, s)
+    else:
+        x = x + a
+    return _mlp(cfg, p, x), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -148,30 +185,39 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """Build caches for ``tokens`` and return last-position logits.
 
     Returns (logits (B, Vp), caches).  Cache buffers are allocated at
-    ``max_len`` so decode can continue in place.  Every layer's attention
-    is one flash-attention launch (on the card).
+    ``max_len`` so decode can continue in place.  On the card, every
+    layer's attention is one flash-attention launch and every layer's
+    selective scan one ``ssm_scan`` launch.
     """
-    _require_dense(cfg)
+    _require_no_moe(cfg)
     x = embed_tokens(params, cfg, tokens, run.compute_dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(b, t)
     layer_params = cast_tree(params["layers"], run.compute_dtype)
-    ks, vs = [], []
+    per_layer = []
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
+        new_cache = {}
         xn = layers.rms_norm(x, lp["ln1"], cfg.rms_eps)
-        a, kv = attention.attn_prefill(lp["attn"], xn, cfg, positions)
-        x = x + a
-        kv = _pad_cache(kv, max_len)
-        ks.append(kv.k)
-        vs.append(kv.v)
-        xn2 = layers.rms_norm(x, lp["ln2"], cfg.rms_eps)
-        m = lp["mlp"]
-        x = x + layers.swiglu(xn2, m["w_gate"], m["w_up"], m["w_down"])
+        if cfg.family == "ssm":
+            y, new_cache["ssm"] = ssm.ssm_train(lp["ssm"], xn, cfg,
+                                                run.ssm_chunk, True)
+            x = x + y
+        else:
+            a, kv = attention.attn_prefill(lp["attn"], xn, cfg, positions)
+            new_cache["kv"] = _pad_cache(kv, max_len)
+            if cfg.family == "hybrid":
+                s, new_cache["ssm"] = ssm.ssm_train(lp["ssm"], xn, cfg,
+                                                    run.ssm_chunk, True)
+                x = x + _mix(cfg, lp, a, s)
+            else:
+                x = x + a
+            x = _mlp(cfg, lp, x)
+        per_layer.append(new_cache)
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     logits = unembed(params, cfg, x)[:, 0]
-    return logits, {"kv": KVCache(torch.stack(ks), torch.stack(vs))}
+    return logits, tu.tree_map(lambda *ls: torch.stack(ls), *per_layer)
 
 
 def _pad_cache(kv: KVCache, max_len: int) -> KVCache:
@@ -190,14 +236,16 @@ def decode_step(params: dict, cfg: ArchConfig, caches: dict,
     """One-token decode.  tokens: (B, 1); index: scalar current length, or
     (B,) per-sequence lengths.  Returns (logits (B, 1, Vp), caches); the
     cache tensors are updated in place and returned."""
-    _require_dense(cfg)
+    _require_no_moe(cfg)
     x = embed_tokens(params, cfg, tokens, run.compute_dtype)
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     layer_params = cast_tree(params["layers"], run.compute_dtype)
-    kv = caches["kv"]
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
-        x, _ = _block_decode(cfg, run, lp, x,
-                             {"kv": KVCache(kv.k[i], kv.v[i])}, index)
+        cache = tu.tree_map(lambda c: c[i], caches)   # views of layer i
+        x, new = _block_decode(cfg, run, lp, x, cache, index)
+        if "ssm" in new:    # the KV rows were written in place already
+            for dst, src in zip(cache["ssm"], new["ssm"]):
+                dst.copy_(src)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return unembed(params, cfg, x), caches

@@ -3,10 +3,11 @@
 Decode runs over a fixed pool of batch *slots*; requests are admitted into
 free slots as others finish, each slot tracking its own sequence position
 (the vectorized ``index`` path through ``attn_decode``).  Prefill runs per
-request at batch 1, its attention in the flash-attention kernel, and the
-request's cache strip is copied into the pool cache at the slot's batch
-row.  PyTorch runs eagerly, so the reference's per-length compile cache
-has no counterpart; the ``prefills`` counter stays.
+request at batch 1, its attention in the flash-attention kernel and its
+selective scan in the ``ssm_scan`` kernel, and the request's cache strip
+(KV rows, SSM conv tail and state) is copied into the pool cache at the
+slot's batch row.  PyTorch runs eagerly, so the reference's per-length
+compile cache has no counterpart; the ``prefills`` counter stays.
 
 The engine holds one copy of the params in the compute dtype, made once
 (see ``lm.cast_tree``).

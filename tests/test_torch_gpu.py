@@ -1,15 +1,18 @@
 """The port on the card: CUDA paths against their CPU twins.
 
 Marked ``gpu``: each test skips without a CUDA device.  On the card run
-``python -m pytest -m gpu tests/test_torch_gpu.py``.  This file imports
-no JAX, so it runs where only PyTorch is installed; the CPU side it
-compares with is itself held against JAX by the other
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
+This file imports no JAX, so it runs where only PyTorch is installed;
+the CPU side it compares with is itself held against JAX by the other
 ``tests/test_torch_*.py`` files.  Tolerances: none for the delta probe
 and the train launcher, bit for bit, since the probe is an integer XOR and
 the launcher is deterministic on the card; for the flash-attention kernel
 against its plain version on the card, ``tests/test_kernels.py``'s 2e-5
 (f32: the same arithmetic in another order) and 2e-2 (bf16: the output is
-rounded to bf16, so an element may sit one bf16 step apart).
+rounded to bf16, so an element may sit one bf16 step apart); for the
+selective-scan kernel, 2e-4 (f32: the same recurrence, exponentials and
+sums rounded in another order) and 2e-2 for a bf16 y, with the f32 final
+state at 2e-4 either way.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.kernels.delta_encode.kernel import (as_i32_tiles,
 from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -175,13 +180,47 @@ def test_flash_attention_masks_keys_past_s_valid(cuda):
     torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
 
 
-def test_engine_on_the_card_prefills_through_the_kernel(cuda):
+SSM_CASES = [
+    # (B, T, Di, N): tests/test_kernels.py's cases, then N 1, 2 and 32 and
+    # hymba-1.5b's and falcon-mamba-7b's prefill widths
+    (2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16), (2, 128, 384, 4),
+    (1, 33, 257, 16), (2, 19, 70, 1), (1, 40, 33, 2), (2, 45, 100, 32),
+    (1, 333, 3200, 16), (2, 97, 8192, 16),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_ssm_scan_matches_plain_version(cuda, case, dtype, tol):
+    b, t, di, n = case
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((b, t, di), generator=gen).to(dtype).to(cuda)
+    dt = (0.1 * torch.randn((b, t, di), generator=gen).abs()).to(dtype) \
+        .to(cuda)
+    bm, cm = (torch.randn((b, t, n), generator=gen).to(cuda)
+              for _ in range(2))
+    a = -torch.randn((di, n), generator=gen).abs().to(cuda)
+    before = ssm_scan.launches
+    y, h = ssm_scan(x, dt, bm, cm, a, return_state=True)
+    assert ssm_scan.launches == before + 1
+    y_ref, h_ref = ssm_scan_ref(x, dt, bm, cm, a, return_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    assert h.dtype == torch.float32 and h.shape == (b, di, n)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
+def test_engine_on_the_card_prefills_through_the_kernel(cuda, arch):
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.distributed.sharding import init_tree
     from repro_torch.models import api
     from repro_torch.models.lm import RunConfig
     from repro_torch.serving.engine import Request, ServingEngine
-    cfg = reduced(get_arch("granite-3-2b"))
+    cfg = reduced(get_arch(arch))
     params = init_tree(api.param_specs(cfg),
                        torch.Generator(device=cuda).manual_seed(0),
                        device=cuda)
@@ -190,10 +229,13 @@ def test_engine_on_the_card_prefills_through_the_kernel(cuda):
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, plen)
                     .astype(np.int32), gen)
             for i, (plen, gen) in enumerate([(8, 6), (12, 4), (5, 8)])]
-    flash_attention.launches = 0
+    flash_attention.launches = ssm_scan.launches = 0
     engine = ServingEngine(cfg, params, slots=2, max_len=64, run=run)
     done = engine.run_queue(reqs)
-    assert flash_attention.launches == cfg.n_layers * len(reqs)
+    per_kernel = cfg.n_layers * len(reqs)
+    assert flash_attention.launches == per_kernel * (cfg.family != "ssm")
+    assert ssm_scan.launches == per_kernel * (cfg.family in ("ssm",
+                                                             "hybrid"))
     assert engine.stats["served"] == len(reqs)
     prefill = api.make_prefill_step(cfg, 64, run)
     for req in done:

@@ -202,11 +202,13 @@ def _single_reference(cfg, params, run, prompt, n_new, max_len):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["falcon-mamba-7b", "hymba-1.5b"])
 def test_engine_matches_isolated_generation(arch):
     """The port's copy of ``tests/test_serving.py``'s test, plus the JAX
     engine's tokens on the same params and queue: greedy tokens at f32
-    compute, where the logits agree to 1e-5 (above)."""
+    compute, where the logits agree to 1e-5 (above; 1e-4 for the SSM and
+    hybrid families, ``tests/test_torch_ssm_serving.py``).  The pool cache
+    carries ``{"ssm": SSMCache}`` and, for the hybrid, ``{"kv", "ssm"}``."""
     cfg = _cfg(arch)
     jparams, params = _params(cfg)
     run = _runs("float32")[1]
