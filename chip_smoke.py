@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # everything, as the check runs it
     python3 chip_smoke.py --phases build,kernel --layers 2
     python3 chip_smoke.py --phases build,ssm_kernel,serve_ssm --ssm-layers 2
+    python3 chip_smoke.py --phases build,delta_ops
+    python3 chip_smoke.py --phases build,sprint
 
 Phases, each printing one JSON line:
 
@@ -54,10 +56,41 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
+9. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+   ``delta_encode``, ``delta_apply``) against their plain versions, bit
+   for bit, on the ``kernel`` phase's leaves and patterns; a
+   ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
+   bytes on ``tests/test_kernels.py``'s delta cases (NaN, Inf and signed
+   zeros included) and on every kernel dtype with an odd 16-bit count;
+   ``changed_blocks(fused=False)`` equal to ``fused=True``, as tiles and as
+   store-chunk records.  Its main path: ``diff_blocks``, ``patch_blocks``
+   and ``changed_blocks(fused=False)`` over float32 tensors of the
+   training path's launch shapes (28, every tile changed, as AdamW leaves
+   the state), one launch of each kernel per shape; then each kernel timed
+   there beside its plain version, its bytes bound and, for
+   ``delta_apply``, ``torch.bitwise_xor``.
+10. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+    its size, 11,000 genes x 321 samples (Load: made with numpy from seed
+    0, moved to the card), Exec: two row-strip work units through the
+    port's ``VolunteerScheduler`` on two volunteers, each strip from
+    ``pcor_strip`` on the card and reported by a blake2b digest of its
+    bytes, run twice with equal digests; then ``correlate`` on the full
+    matrix.  The kernel's counter must read 5; the full matrix must be
+    within 1e-5 of the plain version and 1e-4 of a float64 correlation,
+    its diagonal within 1e-5 of 1, and the strips equal its rows bit for
+    bit.  Then the kernel timed for the full matrix and per strip, beside
+    the plain version, ``torch.corrcoef`` and the operations bound.
+
+The last two run after the others, so that the multi-GB tensors they
+leave in the allocator's cache cannot touch the train phase, and with
+the train launcher's deterministic mode off: a standalone SPRINT or
+delta user runs without it, and its fill of every new tensor would add
+a pass over each output to the kernels' and plain versions' times.
 
 Then a ``phase_seconds`` line (each phase's wall time), the ``kernels``
-summary line (each kernel's launches on the main paths, with its time,
-the plain version's and the bound summed over those launches) and,
+summary line (each of the seven kernels' launches on the main paths, with
+its time, the plain version's, the library call's where there is one and
+the bound summed over those launches) and,
 last, ``{"ok": true, ...}``.  Any failed check exits
 non-zero before that line.  Without a CUDA device it exits non-zero at
 once.
@@ -69,6 +102,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
@@ -90,6 +124,19 @@ ATTN_REPLACES = "src/repro/kernels/flash_attention/kernel.py:78"
 ATTN_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSM_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:57"
 SSM_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+# the one-shot delta API's kernels, each in SOURCE beside the probe
+DELTA_REPLACES = {"changed_bitmap": "src/repro/kernels/delta_encode/kernel.py:78",
+                  "delta_encode": "src/repro/kernels/delta_encode/kernel.py:54",
+                  "delta_apply": "src/repro/kernels/delta_encode/kernel.py:197"}
+# (tile outputs, bitmap outputs) each of them writes
+DELTA_WRITES = {"changed_bitmap": (0, 1), "delta_encode": (1, 1),
+                "delta_apply": (1, 0)}
+PCOR_REPLACES = "src/repro/kernels/pcor/kernel.py:43"
+PCOR_SOURCE = "src/repro_torch/kernels/pcor/csrc/pcor.cu"
+# leaf sizes, in tiles, on which the delta kernels are checked bit for bit
+CHECK_TILES = (1, 12320)
+# the paper's Fig. 4 dataset and SPRINT layout
+GENES, SAMPLES, WORKERS = 11_000, 321, 2
 
 # (B, T, S, H, K, hd, causal): tests/test_kernels.py's ATTN_CASES, then
 # the reduced configs' head size
@@ -114,7 +161,7 @@ GRANITE_HEADS = (32, 8, 64)
 SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 PHASES = ("build", "kernel", "attn_kernel", "train", "serve", "ssm_kernel",
-          "serve_ssm")
+          "serve_ssm", "delta_ops", "sprint")
 # (B, T, Di, N): tests/test_kernels.py's SSM_CASES
 SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
              (2, 128, 384, 4), (1, 33, 257, 16)]
@@ -158,9 +205,10 @@ def phase_build() -> None:
 
     from repro_torch.kernels.delta_encode import kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.pcor import kernel as pcor_kernel
     from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
     mods = {"fused_delta_tiles": kernel, "flash_attention": fa_kernel,
-            "ssm_scan": ssm_kernel}
+            "ssm_scan": ssm_kernel, "pcor": pcor_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build, True) for name, m in mods.items()}
         secs = {name: f.result() for name, f in futs.items()}
@@ -260,7 +308,7 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
     for name in KERNEL_DTYPES:
         dtype = dtype_from_name(name)
         per_tile = TILE * 4 // dtype.itemsize
-        for ntiles in (1, 12320):
+        for ntiles in CHECK_TILES:
             numel = (ntiles - 1) * per_tile + per_tile // 2 + 3   # ragged
             old = _leaf(dtype, numel, gen)
             o32, _ = as_i32_tiles(old)
@@ -311,6 +359,344 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
            "tolerance": "bit for bit", "max_abs_err": max_err, "launches_per_snapshot": len(launches),
            "snapshot_tiles": sum(launches), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes", "reps": reps}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------- delta_ops
+def _delta_kernels() -> dict:
+    """The one-shot delta API's kernel wrappers and their plain versions,
+    by name."""
+    from repro_torch.kernels.delta_encode import kernel, ref
+    return {"changed_bitmap": (kernel.changed_bitmap,
+                               ref.changed_bitmap_ref),
+            "delta_encode": (kernel.delta_encode, ref.delta_encode_ref),
+            "delta_apply": (kernel.delta_apply, ref.delta_apply_ref)}
+
+
+def _int_err(a, b) -> int:
+    """Largest |a - b| of two integer tensors of one shape (0 if equal)."""
+    import torch
+    check(a.shape == b.shape, f"shapes {tuple(a.shape)} != {tuple(b.shape)}")
+    return 0 if torch.equal(a, b) else int((a.long() - b.long()).abs().max())
+
+
+def _roundtrip_cases(gen) -> list:
+    """(name, old, new) on the card: ``tests/test_kernels.py``'s delta
+    cases, its NaN/Inf/signed-zero case, an unchanged tensor, and every
+    kernel dtype with an odd 16-bit count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.delta_encode.ops import (KERNEL_DTYPES,
+                                                      dtype_from_name)
+    rng = np.random.default_rng(0)
+    cases = []
+    for dtype, shape in ((np.float32, (1000, 517)), (np.float32, (8192,)),
+                         (np.int32, (3, 8193)), (np.float32, (7,))):
+        if dtype == np.float32:
+            old = rng.standard_normal(shape).astype(dtype)
+        else:
+            old = rng.integers(-2 ** 30, 2 ** 30, shape).astype(dtype)
+        new = old.copy()
+        flat = new.reshape(-1)
+        idx = rng.choice(flat.size, size=max(1, flat.size // 50),
+                         replace=False)
+        flat[idx] = flat[idx] * 2 + 1
+        cases.append((f"{dtype.__name__}{shape}", old, new))
+    old = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0] * 2000, np.float32)
+    new = old.copy()
+    new[::7] = 1.5
+    new[3::11] = -0.0
+    cases += [("nan_inf_signed_zero", old, new),
+              ("unchanged", np.ones(30_000, np.float32),
+               np.ones(30_000, np.float32))]
+    cases = [(n, torch.from_numpy(o).cuda(), torch.from_numpy(w).cuda())
+             for n, o, w in cases]
+    for name in KERNEL_DTYPES:
+        old = _leaf(dtype_from_name(name), 2 * 8192 + 777, gen)
+        cases.append((f"{name}_odd", old, _mutated(old, "random10", gen)))
+    old = torch.randn(9001, dtype=torch.float64, device="cuda",
+                      generator=gen)
+    new = old.clone()
+    new[[0, 4000, 9000]] += 3.0
+    return cases + [("float64_byte_view", old, new)]
+
+
+def _bytes_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def phase_delta_ops(cfg, reps: int = 5) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.delta_encode import ops
+    from repro_torch.kernels.delta_encode.kernel import TILE, as_i32_tiles
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kernels = _delta_kernels()
+    (bitmap_k, bitmap_ref), (encode_k, encode_ref), (apply_k, apply_ref) = \
+        kernels.values()
+    max_err = dict.fromkeys(kernels, 0)
+    cases = 0
+    # (a) each kernel against its plain version, bit for bit
+    for name in ops.KERNEL_DTYPES:
+        dtype = ops.dtype_from_name(name)
+        per_tile = TILE * 4 // dtype.itemsize
+        for ntiles in CHECK_TILES:
+            numel = (ntiles - 1) * per_tile + per_tile // 2 + 3   # ragged
+            old = _leaf(dtype, numel, gen)
+            o32, _ = as_i32_tiles(old)
+            for pattern in ("none", "all", "first_last", "random10"):
+                n32, _ = as_i32_tiles(_mutated(old, pattern, gen))
+                bm = bitmap_k(o32, n32)
+                delta, bm2 = encode_k(o32, n32)
+                back = apply_k(o32, delta)
+                want_delta, want_bm = encode_ref(o32, n32)
+                errs = {"changed_bitmap": max(
+                            _int_err(bm, bitmap_ref(o32, n32)),
+                            _int_err(bm, want_bm)),
+                        "delta_encode": max(_int_err(delta, want_delta),
+                                            _int_err(bm2, want_bm)),
+                        "delta_apply": max(
+                            _int_err(back, apply_ref(o32, want_delta)),
+                            _int_err(back, n32))}
+                for k, e in errs.items():
+                    max_err[k] = max(max_err[k], e)
+                    check(e == 0, f"{k} != plain: {name} {ntiles} tiles "
+                          f"{pattern} (err {e})")
+                cases += 1
+                del n32, bm, delta, bm2, back, want_delta, want_bm
+            del old, o32
+    torch.cuda.empty_cache()
+
+    # (b) diff -> patch restores the exact bytes; (c) changed_blocks'
+    # two routes agree, as tiles and as store-chunk records
+    for name, old, new in _roundtrip_cases(gen):
+        tiles, bitmap, _ = ops.diff_blocks(old, new)
+        check(_bytes_equal(ops.patch_blocks(old, tiles, bitmap), new),
+              f"diff_blocks -> patch_blocks did not restore {name}")
+        routes = [ops.changed_blocks(old, new, fused=f) for f in (True,
+                                                                   False)]
+        records = [ops.changed_blocks(old, new, fused=f, emit="records",
+                                      chunk_bytes=1 << 14)
+                   for f in (True, False)]
+        check(all(np.array_equal(t, tiles) and np.array_equal(b, bitmap)
+                  for t, b, _ in routes),
+              f"changed_blocks tiles differ from diff_blocks: {name}")
+        check(records[0][0] == records[1][0] and np.array_equal(
+            records[0][1], records[1][1]) and np.array_equal(
+            records[0][1], new.reshape(-1).view(torch.uint8).cpu().numpy()),
+              f"changed_blocks records: fused != unfused: {name}")
+        cases += 1
+    torch.cuda.empty_cache()
+
+    # the main path: the one-shot API over the training path's launch
+    # shapes, every count set to 0 just before and read just after
+    launches = path_launches(cfg)
+
+    def state_pair(nblk):
+        bits = torch.randint(-2**31, 2**31 - 1, (nblk * TILE,),
+                             dtype=torch.int32, device="cuda", generator=gen)
+        return bits.view(torch.float32), (bits ^ 1).view(torch.float32)
+
+    def drive():
+        for nblk in launches:
+            old, new = state_pair(nblk)
+            tiles, bitmap, _ = ops.diff_blocks(old, new)
+            check(bool(bitmap.all()), f"diff_blocks missed a tile of {nblk}")
+            check(_bytes_equal(ops.patch_blocks(old, tiles, bitmap), new),
+                  f"patch_blocks did not restore {nblk} tiles")
+            t2, b2, _ = ops.changed_blocks(old, new, fused=False)
+            check(np.array_equal(t2, tiles) and np.array_equal(b2, bitmap),
+                  f"changed_blocks(fused=False) != diff_blocks at {nblk}")
+            del old, new, tiles, t2
+    t0 = time.perf_counter()
+    _, counts = _launched({k: fn for k, (fn, _) in kernels.items()}, drive)
+    drive_s = time.perf_counter() - t0
+    check(counts == dict.fromkeys(kernels, len(launches)),
+          f"delta_ops launches {counts}, expected {len(launches)} each")
+    torch.cuda.empty_cache()
+
+    # times at those shapes, each distinct shape timed once
+    rows = {k: [] for k in kernels}
+    for nblk in sorted(set(launches)):
+        count = launches.count(nblk)
+        o32 = torch.randint(-2**31, 2**31 - 1, (nblk, 8, 1024),
+                            dtype=torch.int32, device="cuda", generator=gen)
+        n32 = o32 ^ 1
+        d32 = o32 ^ n32
+        tile_bytes = nblk * 4 * TILE
+        for name, (fn, plain) in kernels.items():
+            b = d32 if name == "delta_apply" else n32
+            # two inputs read once, the outputs written once
+            tiles_out, bitmap_out = DELTA_WRITES[name]
+            moved = (2 + tiles_out) * tile_bytes + bitmap_out * 4 * nblk
+            row = {"ms": _time_ms(lambda: fn(o32, b), reps),
+                   "plain_ms": _time_ms(lambda: plain(o32, b), reps),
+                   "ops": 0, "bytes": moved,
+                   "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+            if name == "delta_apply":
+                row["library_ms"] = _time_ms(
+                    lambda: torch.bitwise_xor(o32, d32), reps)
+            rows[name].append((row, count))
+        del o32, n32, d32
+    torch.cuda.empty_cache()
+    paths = {k: _sum_path(r, "float32") for k, r in rows.items()}
+    for k, path in paths.items():
+        path.setdefault("library_ms", None)
+    res = {"phase": "delta_ops", "cases": cases, "tolerance": "bit for bit",
+           "max_abs_err": max_err, "main_path_s": drive_s,
+           "launches": counts, "state_tiles": sum(launches), "reps": reps,
+           "paths": paths}
+    emit(res)
+    return res
+
+
+# -------------------------------------------------------------- sprint
+def _sprint_exec(x, workers: int = WORKERS) -> tuple:
+    """``benchmarks/fig4_sprint_pcor.py``'s ``_exec_workunits`` where ``x``
+    lies (``tests/test_torch_pcor.py`` runs it on the CPU): row-strip units
+    through the scheduler on ``workers`` volunteers, each strip copied into
+    the host matrix and reported by the blake2b digest of its bytes.
+    -> (host matrix, strips by row start, digests by unit, seconds)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scheduler import SimClock, VolunteerScheduler
+    from repro_torch.kernels.pcor.ops import pcor_strip
+    g = x.shape[0]
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = VolunteerScheduler(clock=SimClock())
+    strip = (g + workers - 1) // workers
+    for i in range(workers):
+        sched.submit(i, {"row_start": i * strip})
+    out = np.empty((g, g), np.float32)
+    strips, digests = {}, {}
+    for w in range(workers):
+        wid = f"sprint-{w}"
+        sched.join(wid)
+        unit = sched.request_work(wid)
+        r0 = unit.payload["row_start"]
+        rc = min(strip, g - r0)
+        strips[r0] = pcor_strip(x, r0, rc)
+        torch.from_numpy(out[r0:r0 + rc]).copy_(strips[r0])
+        digests[unit.unit_id] = hashlib.blake2b(
+            memoryview(out[r0:r0 + rc]).cast("B")).hexdigest()
+        check(sched.report(wid, unit.unit_id, digests[unit.unit_id]),
+              f"report of unit {unit.unit_id} refused")
+    check(sched.done(), "the scheduler is not done after every report")
+    check(sched.canonical_results() == digests,
+          "the scheduler's canonical results != the reported digests")
+    return out, strips, digests, time.perf_counter() - t0
+
+
+def pcor_work(rows: int, g: int, s: int) -> dict:
+    """Operations and bytes of ``rows`` rows of the correlation of a (g, s)
+    float32 matrix, and its bound: the FLOP at the card's float32 peak
+    (CUDA cores), x read once and the rows written once.  The matrix is
+    symmetric, so the strip's own (rows, rows) diagonal block needs only
+    its upper triangle, rows (rows + 1) s FLOP, beside 2 s rows (g - rows)
+    for the rest; the full matrix needs g (g + 1) s."""
+    ops = 2 * s * rows * (g - rows) + s * rows * (rows + 1)
+    nbytes = 4 * (g * s + rows * g)
+    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_sprint(reps: int = 5) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.pcor.kernel import pcor
+    from repro_torch.kernels.pcor.ops import correlate
+    from repro_torch.kernels.pcor.ref import pcor_ref, pcor_rows_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (GENES, SAMPLES)).astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    # the main path: two Exec runs and the full matrix
+    def drive():
+        runs = [_sprint_exec(x) for _ in range(2)]
+        full = correlate(x)
+        torch.cuda.synchronize()
+        return runs, full
+    (runs, full), counts = _launched({"pcor": pcor}, drive)
+    (host, strips, digests, exec_s), (_, _, digests2, exec2_s) = runs
+    expected = 2 * WORKERS + 1
+    check(counts["pcor"] == expected,
+          f"pcor launched {counts['pcor']} times, expected {expected}")
+    check(digests == digests2, f"digests differ between runs: {digests} "
+          f"{digests2}")
+
+    # the checks
+    want = pcor_ref(x)
+    err = float((full - want).abs().max())
+    check(torch.allclose(full, want, rtol=1e-5, atol=1e-5),
+          f"pcor != plain: max abs err {err}")
+    x64 = x.double()
+    xc = x64 - x64.mean(dim=1, keepdim=True)
+    z64 = xc / xc.norm(dim=1, keepdim=True)
+    ref64 = z64 @ z64.T
+    err64 = float((full.double() - ref64).abs().max())
+    check(torch.allclose(full.double(), ref64, rtol=1e-4, atol=1e-4),
+          f"pcor vs float64 correlation: max abs err {err64}")
+    del x64, xc, z64, ref64
+    diag_err = float((full.diagonal() - 1.0).abs().max())
+    check(diag_err <= 1e-5, f"diagonal off 1 by {diag_err}")
+    strip_err = 0.0
+    for r0, st in strips.items():
+        check(torch.equal(st, full[r0:r0 + st.shape[0]]),
+              f"strip at row {r0} != the full matrix's rows")
+        plain = pcor_rows_ref(x, r0, st.shape[0])
+        strip_err = max(strip_err, float((st - plain).abs().max()))
+        check(torch.allclose(st, plain, rtol=1e-5, atol=1e-5),
+              f"strip at row {r0} != plain: max abs err {strip_err}")
+        del plain
+    check(np.array_equal(host, full.cpu().numpy()),
+          "the assembled host matrix != the full matrix")
+    del want, host
+    torch.cuda.empty_cache()
+
+    # the times: the full matrix and each strip
+    def timed(r0, rc):
+        row = {"rows": [r0, r0 + rc],
+               "ms": _time_ms(lambda: pcor(x, row_start=r0, row_count=rc),
+                              reps),
+               "plain_ms": _time_ms(lambda: pcor_rows_ref(x, r0, rc),
+                                    reps)}
+        row.update(pcor_work(rc, GENES, SAMPLES))
+        torch.cuda.empty_cache()
+        return row
+    full_row = timed(0, GENES)
+    full_row["library_ms"] = _time_ms(lambda: torch.corrcoef(x), reps)
+    strip_rows = [timed(r0, st.shape[0]) for r0, st in strips.items()]
+    # each Exec run launches every strip once, then the full matrix once;
+    # the library computes one run's strips (the whole matrix) in one call
+    path = _sum_path([(r, 2) for r in strip_rows] + [(full_row, 1)],
+                     "float32")
+    path["library_ms"] = 3 * full_row["library_ms"]
+    res = {"phase": "sprint", "genes": GENES, "samples": SAMPLES,
+           "workers": WORKERS, "load_s": load_s, "exec_s": [exec_s, exec2_s],
+           "digests": digests, "launches": counts["pcor"],
+           "max_abs_err": {"plain": err, "float64": err64,
+                           "diagonal": diag_err, "strips_plain": strip_err},
+           "tolerance": {"plain": 1e-5, "float64": 1e-4, "diagonal": 1e-5,
+                         "strips_vs_full": "bit for bit"},
+           "reps": reps, "full": full_row, "strips": strip_rows,
+           "path": path}
     emit(res)
     return res
 
@@ -753,6 +1139,19 @@ def _trace(fn, top: int = 10) -> dict:
                     for e in kernels[:top]]}
 
 
+@contextlib.contextmanager
+def _nondeterministic():
+    """Deterministic algorithms off for the block, then as they were."""
+    import torch
+    on = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+
+
 def _launched(kernels: dict, fn):
     """Run ``fn`` with every kernel's launch counter set to 0 just before;
     -> (fn's result, {name: launches}) read just after."""
@@ -1090,8 +1489,13 @@ def main(argv=None) -> int:
     sv = run("serve", phase_serve, serve_cfg)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
+    # last, as standalone users run them: outside the train launcher's
+    # deterministic mode, which fills every new allocation, outputs included
+    with _nondeterministic():
+        dops = run("delta_ops", phase_delta_ops, cfg)
+        sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
-    if None in (kern, attn, tr, sv, ssm, sv_ssm):
+    if None in (kern, dops, sprint, attn, tr, sv, ssm, sv_ssm):
         return 0
     # the launches counted on each main path's run, against the launches
     # each kernel phase timed
@@ -1119,12 +1523,17 @@ def main(argv=None) -> int:
                     kern["max_abs_err"], {
                         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
                         "bound_ms": kern["bound_ms"], "bound_by": "bytes"}),
+        *(_kernel_row(name, SOURCE, DELTA_REPLACES[name],
+                      dops["launches"][name], dops["max_abs_err"][name],
+                      dops["paths"][name]) for name in DELTA_REPLACES),
         _kernel_row("flash_attention", ATTN_SOURCE, ATTN_REPLACES,
                     sum(runs["flash_attention"].values()),
                     max(attn["max_abs_err"].values()), attn["path"]),
         _kernel_row("ssm_scan", SSM_SOURCE, SSM_REPLACES,
                     sum(runs["ssm_scan"].values()),
-                    max(ssm["max_abs_err"].values()), ssm["path"])]})
+                    max(ssm["max_abs_err"].values()), ssm["path"]),
+        _kernel_row("pcor", PCOR_SOURCE, PCOR_REPLACES, sprint["launches"],
+                    sprint["max_abs_err"]["plain"], sprint["path"])]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
-// Fused delta probe for Hopper (sm_90a): flag, exclusive scan, scatter.
+// Delta kernels for Hopper (sm_90a) over (nblk, 8, 1024) int32 tiles.
 //
+// fused_delta_tiles, the fused delta probe: flag, exclusive scan, scatter.
 // Replaces src/repro/kernels/delta_encode/kernel.py::fused_delta_tiles
 // (Pallas body _fused_kernel).  Inputs are old/new states viewed as
 // (nblk, 8, 1024) int32 tiles.  Outputs: bitmap[i] = any(old ^ new) over
@@ -23,8 +24,20 @@
 // changed, against the 3N minimum; a single-pass decoupled look-back
 // would reach 3N.
 //
-// Plain C interface for ctypes; returns cudaGetLastError() after the three
-// launches.  Launches on the caller's stream, allocates nothing.
+// The one-shot delta API's three kernels, each one pass of one block per
+// tile with 16-byte loads, bounded by bytes like the probe:
+//   changed_bitmap  replaces kernel.py::changed_bitmap (_bitmap_kernel):
+//                   the flag pass alone, reads 2N;
+//   delta_encode    replaces kernel.py::delta_encode (_delta_kernel): the
+//                   XOR tile and its flag, reads 2N and writes N;
+//   delta_apply     replaces kernel.py::delta_apply (_apply_kernel):
+//                   new = old ^ delta, reads 2N and writes N.
+// Each reads every input byte once and writes every output byte once,
+// the least these functions can move.
+//
+// Plain C interface for ctypes; each entry point returns
+// cudaGetLastError() after its launches.  Launches on the caller's
+// stream, allocates nothing.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -103,6 +116,35 @@ scatter_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+encode_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
+             int4* __restrict__ delta, int* __restrict__ bitmap) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * kTileVecs;
+  int acc = 0;
+#pragma unroll
+  for (int j = threadIdx.x; j < kTileVecs; j += kThreads) {
+    const int4 a = o[base + j];
+    const int4 b = n[base + j];
+    const int4 d = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+    delta[base + j] = d;
+    acc |= d.x | d.y | d.z | d.w;
+  }
+  const int any = __syncthreads_or(acc != 0);
+  if (threadIdx.x == 0) bitmap[blockIdx.x] = any ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+xor_tiles(const int4* __restrict__ o, const int4* __restrict__ d,
+          int4* __restrict__ out) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * kTileVecs;
+#pragma unroll
+  for (int j = threadIdx.x; j < kTileVecs; j += kThreads) {
+    const int4 a = o[base + j];
+    const int4 b = d[base + j];
+    out[base + j] = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+  }
+}
+
 }  // namespace
 
 extern "C" int fused_delta_tiles(const void* o32, const void* n32,
@@ -119,5 +161,35 @@ extern "C" int fused_delta_tiles(const void* o32, const void* n32,
   exclusive_scan<<<1, kScanThreads, 0, s>>>(bm, off, nblk);
   scatter_tiles<<<grid, kThreads, 0, s>>>(o, n, bm, off,
                                          static_cast<int4*>(tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int changed_bitmap(const void* o32, const void* n32, void* bitmap,
+                              long long nblk, void* stream) {
+  if (nblk <= 0) return 0;
+  flag_tiles<<<static_cast<unsigned>(nblk), kThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(o32), static_cast<const int4*>(n32),
+      static_cast<int*>(bitmap));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int delta_encode(const void* o32, const void* n32, void* delta,
+                            void* bitmap, long long nblk, void* stream) {
+  if (nblk <= 0) return 0;
+  encode_tiles<<<static_cast<unsigned>(nblk), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(o32), static_cast<const int4*>(n32),
+      static_cast<int4*>(delta), static_cast<int*>(bitmap));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int delta_apply(const void* o32, const void* d32, void* out,
+                           long long nblk, void* stream) {
+  if (nblk <= 0) return 0;
+  xor_tiles<<<static_cast<unsigned>(nblk), kThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(o32), static_cast<const int4*>(d32),
+      static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,26 @@
-"""Fused delta probe: the differencing-snapshot hot path on the card.
+"""Delta kernels over (nblk, 8, 1024) int32 tile views of a state.
 
-``fused_delta_tiles`` replaces the Pallas kernel of the same name in
-``repro/kernels/delta_encode/kernel.py``.  Over (nblk, 8, 1024) int32 tile
-views of the old and new state it returns the per-tile changed bitmap and
-the changed XOR tiles compacted in ascending tile order.  Deltas are XOR
-on the bit pattern, so they are exact for any float (NaN/Inf payloads
-included) and unchanged tiles cost nothing downstream.
+Each wrapper replaces the Pallas kernel of the same name in
+``repro/kernels/delta_encode/kernel.py``:
+
+* ``fused_delta_tiles``, the differencing-snapshot hot path: the per-tile
+  changed bitmap and the changed XOR tiles compacted in ascending tile
+  order;
+* ``changed_bitmap``: the bitmap alone (the probe of the unfused
+  ``changed_blocks``, followed by the plain ``gather_delta``);
+* ``delta_encode``: every XOR tile and the bitmap (``diff_blocks``);
+* ``delta_apply``: new = old ^ delta (``patch_blocks``).
+
+Deltas are XOR on the bit pattern, so they are exact for any float
+(NaN/Inf payloads included) and unchanged tiles cost nothing downstream.
+``as_i32_tiles`` and ``_bitcast_back`` carry a tensor to tiles and back.
 
 The tensor's device picks the route: a CPU tensor takes the plain PyTorch
-version (``ref.fused_tiles_ref``); a CUDA tensor launches the hand-written
-kernel in ``csrc/fused_delta.cu`` (built with ``nvcc`` at first use into
-``build/`` beside this file, bound through ``ctypes``) or raises.  There is
-no fallback from the card to the plain version.
+version (``ref.py``); a CUDA tensor launches the hand-written kernel in
+``csrc/fused_delta.cu`` (built with ``nvcc`` at first use into ``build/``
+beside this file, bound through ``ctypes``) or raises.  There is no
+fallback from the card to the plain version.  Each wrapper counts its
+kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -21,7 +30,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import build_library, read_log
-from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
+from repro_torch.kernels.delta_encode.ref import (changed_bitmap_ref,
+                                                  delta_apply_ref,
+                                                  delta_encode_ref,
+                                                  fused_tiles_ref)
 
 LANE = 1024
 SUB = 8
@@ -31,6 +43,9 @@ _SRC = Path(__file__).with_name("csrc") / "fused_delta.cu"
 _BUILD = Path(__file__).with_name("build")
 _LIB_PATH = _BUILD / "libfused_delta.so"
 _LOG_PATH = _BUILD / "nvcc.log"
+# entry point -> number of tensor pointers before (nblk, stream)
+_ENTRY_POINTS = {"fused_delta_tiles": 5, "changed_bitmap": 3,
+                 "delta_encode": 4, "delta_apply": 3}
 _lib = None
 
 
@@ -51,61 +66,116 @@ def _load():
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(_LIB_PATH))
-        fn = lib.fused_delta_tiles
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name, n_ptrs in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong,
+                                                        ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_tiles(o32: torch.Tensor, n32: torch.Tensor) -> None:
-    for name, t in (("old", o32), ("new", n32)):
+def _on_card(name: str, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Check a pair of (nblk, SUB, LANE) int32 tile tensors; -> True for
+    the kernel route (CUDA), False for the plain one (CPU).  Raises on
+    anything the kernel does not take."""
+    for what, t in (("first", a), ("second", b)):
         if t.dtype != torch.int32 or t.dim() != 3 \
                 or tuple(t.shape[1:]) != (SUB, LANE):
-            raise ValueError(f"fused_delta_tiles: {name} must be (nblk, "
-                             f"{SUB}, {LANE}) int32, got {tuple(t.shape)} "
+            raise ValueError(f"{name}: {what} input must be (nblk, {SUB}, "
+                             f"{LANE}) int32, got {tuple(t.shape)} "
                              f"{t.dtype}")
-    if o32.shape != n32.shape or o32.device != n32.device:
-        raise ValueError("fused_delta_tiles: old/new differ in shape or "
-                         "device")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"{name}: inputs differ in shape or device")
+    if a.device.type == "cpu":
+        return False
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    return True
+
+
+def _launch(wrapper, *tensors: torch.Tensor) -> None:
+    """Call the entry point of ``wrapper``'s name on the tensors' pointers,
+    over the first tensor's tiles, on the current stream; count the
+    launch on ``wrapper``."""
+    name = wrapper.__name__
+    lib = _load()
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*(t.data_ptr() for t in tensors),
+                                 tensors[0].shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
+                           f"{err}")
+    wrapper.launches += 1
+
+
+def _tiles_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty((t.shape[0], SUB, LANE), dtype=torch.int32,
+                       device=t.device)
+
+
+def _bitmap_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape[0], dtype=torch.int32, device=t.device)
 
 
 def fused_delta_tiles(o32: torch.Tensor, n32: torch.Tensor):
     """-> (bitmap (nblk,) int32, tiles).  The k = bitmap.sum() changed XOR
     tiles sit in ``tiles[:k]`` in ascending tile order; on the card
     ``tiles`` is (nblk, 8, 1024) and slots past k are unwritten."""
-    _check_tiles(o32, n32)
-    if o32.device.type == "cpu":
+    if not _on_card("fused_delta_tiles", o32, n32):
         return fused_tiles_ref(o32, n32)
-    if o32.device.type != "cuda":
-        raise ValueError(f"fused_delta_tiles: no kernel for device "
-                         f"{o32.device}")
-    if not (o32.is_contiguous() and n32.is_contiguous()):
-        raise ValueError("fused_delta_tiles: inputs must be contiguous")
-    if o32.data_ptr() % 16 or n32.data_ptr() % 16:
-        raise ValueError("fused_delta_tiles: inputs must be 16-byte aligned")
-    nblk = o32.shape[0]
-    bitmap = torch.empty(nblk, dtype=torch.int32, device=o32.device)
-    tiles = torch.empty((nblk, SUB, LANE), dtype=torch.int32,
-                        device=o32.device)
-    if nblk == 0:
-        return bitmap, tiles
-    lib = _load()
-    offs = torch.empty(nblk, dtype=torch.int32, device=o32.device)
-    with torch.cuda.device(o32.device):
-        stream = torch.cuda.current_stream(o32.device).cuda_stream
-        err = lib.fused_delta_tiles(o32.data_ptr(), n32.data_ptr(),
-                                    bitmap.data_ptr(), tiles.data_ptr(),
-                                    offs.data_ptr(), nblk, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_delta_tiles: CUDA launch failed with "
-                           f"cudaError {err}")
-    fused_delta_tiles.launches += 1
+    bitmap, tiles = _bitmap_like(o32), _tiles_like(o32)
+    if o32.shape[0]:
+        _launch(fused_delta_tiles, o32, n32, bitmap, tiles,
+                _bitmap_like(o32))          # the scan's offsets
     return bitmap, tiles
 
 
-fused_delta_tiles.launches = 0
+def changed_bitmap(o32: torch.Tensor, n32: torch.Tensor) -> torch.Tensor:
+    """-> (nblk,) int32, 1 where tile i of old and new differs."""
+    if not _on_card("changed_bitmap", o32, n32):
+        return changed_bitmap_ref(o32, n32)
+    bitmap = _bitmap_like(o32)
+    if o32.shape[0]:
+        _launch(changed_bitmap, o32, n32, bitmap)
+    return bitmap
+
+
+def delta_encode(o32: torch.Tensor, n32: torch.Tensor):
+    """-> (delta (nblk, 8, 1024) int32 = old ^ new, bitmap (nblk,) int32)."""
+    if not _on_card("delta_encode", o32, n32):
+        return delta_encode_ref(o32, n32)
+    delta, bitmap = _tiles_like(o32), _bitmap_like(o32)
+    if o32.shape[0]:
+        _launch(delta_encode, o32, n32, delta, bitmap)
+    return delta, bitmap
+
+
+def delta_apply(o32: torch.Tensor, d32: torch.Tensor) -> torch.Tensor:
+    """-> new (nblk, 8, 1024) int32 = old ^ delta."""
+    if not _on_card("delta_apply", o32, d32):
+        return delta_apply_ref(o32, d32)
+    new = _tiles_like(o32)
+    if o32.shape[0]:
+        _launch(delta_apply, o32, d32, new)
+    return new
+
+
+for _fn in (fused_delta_tiles, changed_bitmap, delta_encode, delta_apply):
+    _fn.launches = 0
+
+
+def gather_delta(o32: torch.Tensor, n32: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """The changed tiles ``idx`` of old ^ new, (k, 8, 1024) int32: plain
+    torch ops (index, then XOR), as the reference's is plain jnp."""
+    return torch.bitwise_xor(o32[idx], n32[idx])
 
 
 def _bitcast_i32(x: torch.Tensor) -> torch.Tensor:
@@ -133,3 +203,12 @@ def as_i32_tiles(x: torch.Tensor):
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     return flat.view(-1, SUB, LANE), n
+
+
+def _bitcast_back(flat_i32: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """Flat int32 words -> a tensor of ``shape`` and ``dtype`` made of
+    their leading bytes: the tile padding, and the padding half-word of an
+    odd 16-bit count, are dropped."""
+    nbytes = torch.Size(shape).numel() * dtype.itemsize
+    raw = flat_i32.reshape(-1).view(torch.uint8)[:nbytes]
+    return raw.view(dtype).reshape(shape)

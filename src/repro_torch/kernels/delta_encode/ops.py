@@ -1,4 +1,5 @@
-"""Bucketed whole-state probe and host-side compaction for snapshots.
+"""Bucketed whole-state probe, the one-shot delta API, and host-side
+compaction for snapshots.
 
 ``probe_leaves`` is the SnapshotManager hot path: it diffs a dict of leaves
 against a ``DeviceMirror`` of the previous snapshot's tiles, one fused
@@ -8,6 +9,15 @@ tiles.  A missing or layout-mismatched slot seeds itself from the new
 tiles and reports its leaves as un-probed (``None``) so the caller stores
 a base image.  ``chunk_records``/``apply_tiles`` fold the tiles into
 store-chunk XOR records on the host.
+
+The one-shot API diffs a single tensor: ``diff_blocks`` (every XOR tile,
+``kernel.delta_encode``, compacted) and ``patch_blocks``
+(``kernel.delta_apply``) round-trip it exactly; ``changed_blocks``
+returns the changed tiles (or store-chunk records) through the fused
+probe or, with ``fused=False``, through ``kernel.changed_bitmap`` and the
+plain ``gather_delta``.  Dtypes outside ``KERNEL_DTYPES`` go through the
+same kernels on a byte view (``_byte_tiles``, the same bits the
+reference's numpy oracle diffs).
 
 The tensors' device picks the route (``kernel.fused_delta_tiles``): the
 CUDA kernel on the card, its plain version on the CPU.  Both give the same
@@ -37,8 +47,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.delta_encode.kernel import (LANE, SUB, TILE,
+                                                     _bitcast_back,
                                                      as_i32_tiles,
-                                                     fused_delta_tiles)
+                                                     changed_bitmap,
+                                                     delta_apply,
+                                                     delta_encode,
+                                                     fused_delta_tiles,
+                                                     gather_delta)
 
 TILE_BYTES = TILE * 4          # one (8, 1024) i32 tile = 32 KiB of state
 _EMPTY_TILES = np.zeros((0, SUB, LANE), np.int32)
@@ -300,6 +315,99 @@ def _probe_bucket(bid: int, leaves: list, news: dict, mirror: DeviceMirror):
         off += ntiles
         pos += k
     return out
+
+
+def _tensor_pair(old: torch.Tensor, new: torch.Tensor) -> str:
+    """Validate a diff pair; -> the dtype's manifest name.  A dtype
+    mismatch is an error: bitcasting two layouts would diff garbage."""
+    if old.dtype != new.dtype:
+        raise TypeError(f"old dtype {old.dtype} != new dtype {new.dtype}; "
+                        "diff pairs must share a bit layout")
+    if old.numel() != new.numel():
+        raise ValueError(f"old has {old.numel()} elements, new "
+                         f"{new.numel()}")
+    return dtype_name(old.dtype)
+
+
+def diff_blocks(old: torch.Tensor, new: torch.Tensor):
+    """-> (changed_tiles (k, 8, 1024) int32, bitmap (nblk,) int32, n), numpy
+    on the host; n is the int32 word count before tile padding, as the
+    reference's kernel route returns it (its numpy route returns the
+    element count, which differs for 16-bit dtypes).  It runs where
+    ``new`` lies, as ``changed_blocks`` does: a host image diffed against
+    a live leaf on the card goes through the kernel."""
+    dt = _tensor_pair(old, new)
+    delta, bitmap = delta_encode(_leaf_tiles(old.to(new.device), dt),
+                                 _leaf_tiles(new, dt))
+    words = -(-old.numel() * old.element_size() // 4)
+    return (delta[bitmap.bool()].cpu().numpy(), bitmap.cpu().numpy(),
+            words)
+
+
+def patch_blocks(old: torch.Tensor, changed_tiles, bitmap) -> torch.Tensor:
+    """Rebuild ``new`` (old's shape, dtype and device) from ``old`` and the
+    compacted changed tiles of ``diff_blocks``."""
+    o32 = _leaf_tiles(old, dtype_name(old.dtype))
+    mask = torch.as_tensor(bitmap, device=old.device).bool()
+    full = torch.zeros_like(o32)
+    full[mask] = torch.as_tensor(changed_tiles, device=old.device)
+    return _bitcast_back(delta_apply(o32, full), old.shape, old.dtype)
+
+
+def changed_blocks(old: torch.Tensor, new: torch.Tensor, *,
+                   emit: str = "tiles", chunk_bytes: int = 0,
+                   fused: bool = True, mirror: Optional[DeviceMirror] = None,
+                   mirror_key=None):
+    """Diff of one tensor: -> (changed_tiles (k, 8, 1024) int32, bitmap
+    (nblk,) int32, nbytes), numpy on the host; only the bitmap and the k
+    changed tiles leave the device.  ``fused=False`` runs the two-pass
+    route (``changed_bitmap``, then ``gather_delta`` of the changed tiles
+    when there are any), counted as 1 + 1 launches in ``KERNEL_STATS``.
+
+    ``mirror``/``mirror_key`` (fused route only, as in the reference): a
+    ``DeviceMirror`` slot holding the previous tiles on the device.  When
+    it matches, it is diffed instead of ``old``; either way the slot then
+    holds the new tiles.  The slot owns its bytes (``_owned``), so an
+    in-place update of ``new`` before the next call still shows there.
+    ``old`` must still be the previous image: it feeds the records.
+
+    ``emit="records"`` -> (records {chunk index: XOR bytes} for exactly
+    the store chunks whose bytes changed, the new uint8 host image,
+    nbytes); it needs ``chunk_bytes``.  The reference's ``mode`` is gone:
+    the tensors' device picks the kernels or their plain versions."""
+    dt = _tensor_pair(old, new)
+    if emit not in ("tiles", "records"):
+        raise ValueError(f"unknown emit mode {emit!r}")
+    if emit == "records" and chunk_bytes <= 0:
+        raise ValueError("emit='records' requires chunk_bytes")
+    nbytes = old.numel() * old.element_size()
+    n32 = _leaf_tiles(new, dt)
+    tile_bytes = n32.numel() * 4
+    if fused:
+        layout = (n32.shape[0], nbytes)
+        o32 = mirror.get(mirror_key, layout) if mirror is not None else None
+        if o32 is None:
+            o32 = _leaf_tiles(old.to(new.device), dt)
+        bm, tiles_dev, events = _launch(o32, n32)
+        bitmap, tiles = _fetch_compacted(bm, tiles_dev, tile_bytes, events)
+        if mirror is not None:
+            mirror.swap(mirror_key, layout, _owned(n32, new))
+    else:
+        o32 = _leaf_tiles(old.to(new.device), dt)
+        bitmap = changed_bitmap(o32, n32).cpu().numpy()
+        _count_launch(tile_bytes, bitmap.nbytes)
+        idx = np.flatnonzero(bitmap)
+        tiles = _EMPTY_TILES
+        if idx.size:
+            tiles = gather_delta(o32, n32, torch.as_tensor(
+                idx, device=n32.device)).cpu().numpy()
+            _count_launch(tile_bytes, idx.size * TILE_BYTES)
+    if emit == "tiles":
+        return tiles, bitmap, nbytes
+    host_old = old.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+    records, new_flat = chunk_records(host_old, tiles, bitmap, nbytes,
+                                      chunk_bytes)
+    return records, new_flat, nbytes
 
 
 def chunk_records(prev: np.ndarray, tiles: np.ndarray, bitmap: np.ndarray,

@@ -12,7 +12,11 @@ against its plain version on the card, ``tests/test_kernels.py``'s 2e-5
 rounded to bf16, so an element may sit one bf16 step apart); for the
 selective-scan kernel, 2e-4 (f32: the same recurrence, exponentials and
 sums rounded in another order) and 2e-2 for a bf16 y, with the f32 final
-state at 2e-4 either way.
+state at 2e-4 either way; for the three one-shot delta kernels, bit for
+bit (integer XOR); for the correlation kernel, 1e-5 against its plain
+version (``tests/test_kernels.py``'s limit: float32 sums in another
+order), and bit for bit between a strip and the same rows of the full
+matrix (one fixed summation order per element).
 """
 from __future__ import annotations
 
@@ -27,10 +31,19 @@ from repro_torch.core.chunkstore import ChunkStore
 from repro_torch.core.snapshots import SnapshotManager
 from repro_torch.kernels.delta_encode import ops
 from repro_torch.kernels.delta_encode.kernel import (as_i32_tiles,
+                                                     changed_bitmap,
+                                                     delta_apply,
+                                                     delta_encode,
                                                      fused_delta_tiles)
-from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
+from repro_torch.kernels.delta_encode.ref import (changed_bitmap_ref,
+                                                  delta_apply_ref,
+                                                  delta_encode_ref,
+                                                  fused_tiles_ref)
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.pcor.kernel import pcor
+from repro_torch.kernels.pcor.ops import correlate, pcor_strip
+from repro_torch.kernels.pcor.ref import pcor_ref
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -67,6 +80,77 @@ def test_kernel_matches_plain_version(cuda, dtype):
     k = int(bm_ref.sum())
     assert k >= 1
     assert torch.equal(bm, bm_ref) and torch.equal(tiles[:k], tiles_ref)
+
+
+@pytest.mark.parametrize("dtype", ops.KERNEL_DTYPES)
+def test_one_shot_delta_kernels_match_plain_versions(cuda, dtype):
+    gen = torch.Generator().manual_seed(18)
+    old = _leaf(ops.dtype_from_name(dtype), 5 * 16384 + 7, gen)
+    new = old.clone()
+    bits = new.view(torch.int16 if new.element_size() == 2 else torch.int32)
+    flipped = [3, 3 * 16384 + 1, 5 * 16384 + 6]
+    bits[flipped] ^= 4
+    per_tile = 8192 * 4 // new.element_size()
+    o32, _ = as_i32_tiles(old.to(cuda))
+    n32, _ = as_i32_tiles(new.to(cuda))
+    before = [k.launches for k in (changed_bitmap, delta_encode,
+                                   delta_apply)]
+    bm = changed_bitmap(o32, n32)
+    delta, bm2 = delta_encode(o32, n32)
+    back = delta_apply(o32, delta)
+    assert [k.launches for k in (changed_bitmap, delta_encode,
+                                 delta_apply)] == [n + 1 for n in before]
+    delta_ref, bm_ref = delta_encode_ref(o32, n32)
+    torch.cuda.synchronize()
+    assert bm_ref.nonzero().flatten().tolist() == sorted(
+        {i // per_tile for i in flipped})
+    assert torch.equal(bm, changed_bitmap_ref(o32, n32))
+    assert torch.equal(bm, bm_ref) and torch.equal(bm2, bm_ref)
+    assert torch.equal(delta, delta_ref)
+    assert torch.equal(back, delta_apply_ref(o32, delta_ref))
+    assert torch.equal(back, n32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_one_shot_delta_api_matches_cpu(cuda, dtype):
+    gen = torch.Generator().manual_seed(19)
+    old = torch.randn(40001, generator=gen).to(ops.dtype_from_name(dtype))
+    new = old.clone()
+    new[[0, 17000, 40000]] = float("nan")
+    new[5] = -0.0
+    tiles, bitmap, n = ops.diff_blocks(old.to(cuda), new.to(cuda))
+    want = ops.diff_blocks(old, new)
+    np.testing.assert_array_equal(tiles, want[0])
+    np.testing.assert_array_equal(bitmap, want[1])
+    assert n == want[2]
+    rec = ops.patch_blocks(old.to(cuda), tiles, bitmap)
+    assert rec.device.type == "cuda" and rec.dtype == old.dtype
+    assert torch.equal(rec.cpu().view(torch.uint8), new.view(torch.uint8))
+    for fused in (True, False):
+        got = ops.changed_blocks(old.to(cuda), new.to(cuda), fused=fused)
+        np.testing.assert_array_equal(got[0], tiles)
+        np.testing.assert_array_equal(got[1], bitmap)
+
+
+def test_host_image_against_card_leaf_runs_on_the_card(cuda):
+    """The uplink's pair: an old image on the host, the new leaf live on
+    the card.  Both one-shot entry points diff where ``new`` lies."""
+    gen = torch.Generator().manual_seed(20)
+    old = torch.randn(3 * 8192 + 5, generator=gen)
+    new = old.clone()
+    new[[1, 2 * 8192 + 3]] += 1.0
+    want = ops.diff_blocks(old, new)
+    before = delta_encode.launches
+    got = ops.diff_blocks(old, new.to(cuda))
+    assert delta_encode.launches == before + 1
+    before = [fused_delta_tiles.launches, changed_bitmap.launches]
+    fused = ops.changed_blocks(old, new.to(cuda))
+    unfused = ops.changed_blocks(old, new.to(cuda), fused=False)
+    assert [fused_delta_tiles.launches, changed_bitmap.launches] == \
+        [n + 1 for n in before]
+    for tiles, bitmap, _ in (got, fused, unfused):
+        np.testing.assert_array_equal(tiles, want[0])
+        np.testing.assert_array_equal(bitmap, want[1])
 
 
 def _tree(gen) -> dict:
@@ -242,3 +326,30 @@ def test_engine_on_the_card_prefills_through_the_kernel(cuda, arch):
         logits, _ = prefill(engine.params, {"tokens": req.prompt[None, :]})
         assert req.output[0] == int(torch.argmax(logits[0, :cfg.vocab_size]))
         assert len(req.output) == req.max_new_tokens
+
+
+PCOR_CASES = [(150, 321), (256, 128), (100, 50), (64, 7), (1000, 321),
+              (129, 1)]
+
+
+@pytest.mark.parametrize("g,s", PCOR_CASES)
+def test_pcor_matches_plain_version(cuda, g, s):
+    gen = torch.Generator().manual_seed(g + s)
+    x = torch.randn((g, s), generator=gen).to(cuda)
+    x[g // 2] = 0.0                        # an all-zero row: 0 either way
+    before = pcor.launches
+    full = correlate(x)
+    assert pcor.launches == before + 1
+    want = pcor_ref(x)
+    torch.cuda.synchronize()
+    assert full.shape == (g, g) and full.dtype == torch.float32
+    torch.testing.assert_close(full, want, rtol=1e-5, atol=1e-5)
+    assert not full[g // 2].any() and not full[:, g // 2].any()
+    if s > 1:
+        diag = full.diagonal()
+        keep = torch.arange(g, device=cuda) != g // 2
+        torch.testing.assert_close(diag[keep], torch.ones_like(diag[keep]),
+                                   rtol=0, atol=1e-5)
+    for r0, rc in ((0, g // 2), (g // 2, g - g // 2), (g // 3, 5)):
+        assert torch.equal(pcor_strip(x, r0, rc), full[r0:r0 + rc])
+    assert torch.equal(full, full.T)
