@@ -10,7 +10,10 @@
 Phases, each printing one JSON line:
 
 1. ``gpu``: the card's name and power limit (``nvidia-smi``).
-2. ``build``: ``nvcc`` of every kernel source of the port, in parallel.
+2. ``build``: ``nvcc`` of every kernel source of the port, in parallel;
+   then the ``HGMMA`` (wgmma) instructions of each function in
+   ``cuobjdump -sass`` of ``libflash_attention.so``: every bf16 attention
+   kernel must have some, or the phase fails.
 3. ``kernel``: ``fused_delta_tiles`` against its plain PyTorch version, bit
    for bit, on leaves of 1 and 12,320 tiles with ragged tails, every
    kernel dtype, and no / all / first-and-last / a random 10 % of tiles
@@ -20,10 +23,20 @@ Phases, each printing one JSON line:
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
    bf16 (2e-2), and on every prefill shape of the serve and serve_ssm
-   phases in bf16; then timed with CUDA events beside the plain version
+   phases in bf16, each both in the kernel's (B, H, T, hd) layout and
+   through ``ops.attend`` on the model's (B, T, H, hd) tensors, as the
+   path calls it; then timed with CUDA events beside the plain version
    and ``scaled_dot_product_attention`` (the library yardstick, used
-   nowhere in the port) at granite-3-2b's prefill shapes and at every
-   prefill shape of those phases, each with its bound.
+   nowhere in the port: pinned to its flash backend, and under its
+   default dispatch, whose backend is named; the faster of the two
+   counts) at granite-3-2b's prefill shapes in the kernel's layout and at
+   every prefill shape of those phases through ``attend``, each with its
+   bound, the executed TFLOP/s of kernel and library, and the kernel's
+   share of its bound.  At B 1, T 97 to 2000 and B 8, T 2048 a call of
+   ``attend`` is split into the kernel's device time
+   (``torch.profiler``), the host's time to issue it and its time on
+   CUDA events; at B 8, T 2048 the bf16 output is held against float32
+   references with P in float32 and with P rounded to bf16.
 5. ``train``: ``repro_torch.launch.train`` at the full width of
    granite-3-2b (d_model 2048, 32 heads, 8 KV heads, d_ff 8192, vocab
    49155) and 4 of its 40 layers: 4 rounds with a snapshot every 2, a
@@ -212,10 +225,33 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build, True) for name, m in mods.items()}
         secs = {name: f.result() for name, f in futs.items()}
-    emit({"phase": "build", "seconds": secs, "ptxas": {
+    # every bf16 attention kernel must run its products on the tensor cores
+    hgmma = sass_count(fa_kernel._LIB_PATH, "HGMMA")
+    emit({"phase": "build", "seconds": secs, "hgmma": hgmma, "ptxas": {
         name: [ln.strip() for ln in m.build_log().splitlines()
                if "Used" in ln or "spill" in ln]
         for name, m in mods.items()}})
+    wgmma = {fn: n for fn, n in hgmma.items() if "attn_fwd_wgmma" in fn}
+    check(len(wgmma) > 0 and all(n > 0 for n in wgmma.values()),
+          f"libflash_attention.so: HGMMA per wgmma kernel {wgmma}")
+
+
+def sass_count(lib: Path, opcode: str) -> dict:
+    """Instructions of ``opcode`` in each function of ``cuobjdump -sass``
+    of ``lib``, by mangled function name."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
 
 
 # ------------------------------------------------------------- kernel
@@ -717,11 +753,20 @@ def attn_work(b: int, t: int, s: int, h: int, kh: int, hd: int,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def _attn_inputs(b, t, s, h, kh, hd, dtype, gen):
+def _attn_inputs(b, t, s, h, kh, hd, dtype, gen, model: bool = False):
+    """q, k, v in the kernel's layout, (B, H, T, hd) and (B, K, S, hd), or
+    with ``model`` in the model's, (B, T, H, hd) and (B, S, K, hd)."""
     import torch
+    shapes = (((b, t, h, hd), (b, s, kh, hd)) if model
+              else ((b, h, t, hd), (b, kh, s, hd)))
     return tuple(torch.randn(shape, device="cuda", generator=gen)
                  .to(getattr(torch, dtype))
-                 for shape in ((b, h, t, hd), (b, kh, s, hd), (b, kh, s, hd)))
+                 for shape in (shapes[0], shapes[1], shapes[1]))
+
+
+def _heads_first(*xs) -> tuple:
+    """(B, T, H, hd) tensors as the (B, H, T, hd) views the kernel reads."""
+    return tuple(x.transpose(1, 2) for x in xs)
 
 
 def prefill_calls(launcher: bool) -> list:
@@ -742,8 +787,9 @@ def _sum_path(rows: list, dtype: str) -> dict:
     """Sum (row, launches) pairs into one path total; the bound's term is
     the larger of the summed operations and bytes."""
     path = {"launches": 0}
-    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
-                        "bytes") if k in rows[0][0]]
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "sdpa_flash_ms",
+                        "sdpa_default_ms", "bound_ms", "ops", "bytes")
+            if k in rows[0][0]]
     for key in keys:
         path[key] = 0.0
     for row, n in rows:
@@ -756,26 +802,138 @@ def _sum_path(rows: list, dtype: str) -> dict:
     return path
 
 
+# the library yardsticks: SDPA pinned to its flash backend (never the
+# math route; a refusal fails the phase) and SDPA under its default
+# dispatch, whose backend is named; ``library_ms`` is the faster of the two
+SDPA_FLASH = "FLASH_ATTENTION"
+# (B, T) at granite-3-2b's heads in the model's layout, where the kernel's
+# device time is split from the wrapper's host time per call
+SPLIT_SHAPES = ((1, 97), (1, 250), (1, 512), (1, 777), (1, 2000),
+                (8, 2048))
+
+
+def _sdpa(q, k, v):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+
+
+def _time_sdpa(q, k, v, reps: int) -> dict:
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([getattr(SDPBackend, SDPA_FLASH)]):
+        flash = _time_ms(lambda: _sdpa(q, k, v), reps)
+    default = _time_ms(lambda: _sdpa(q, k, v), reps)
+    picked = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=True, enable_gqa=True)).name
+    return {"sdpa_flash_ms": flash, "sdpa_default_ms": default,
+            "sdpa_default_backend": picked,
+            "library_ms": min(flash, default)}
+
+
+def _rates(row: dict) -> dict:
+    """Executed TFLOP/s of the kernel and the library call, and the
+    kernel's share of its bound."""
+    return {"tflops": row["ops"] / row["ms"] / 1e9,
+            "library_tflops": row["ops"] / row["library_ms"] / 1e9,
+            "bound_share": row["bound_ms"] / row["ms"]}
+
+
+def _split(fn, n: int = 20) -> dict:
+    """One call of ``fn`` taken apart: the attention kernel's device time
+    per launch (``torch.profiler``), the host's time to issue the call
+    (no sync between calls) and the call's time on CUDA events; the
+    kernel's name says which instantiation ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ran = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "attn_fwd" in e.key]
+    check(sum(e.count for e in ran) == n,
+          f"profiler saw {[(e.key, e.count) for e in ran]} for {n} calls")
+    return {"kernel_us": sum(e.self_device_time_total for e in ran) / n,
+            "host_us": host_us, "call_us": _time_ms(fn, n) * 1e3,
+            "kernel": [e.key[e.key.index("attn_fwd"):].split("(")[0]
+                       for e in ran]}
+
+
+def _attention_bf16_p(q, k, v):
+    """``attention_ref`` with P rounded to bf16 before P.V, as the
+    kernel's bf16 route multiplies it; float32 out."""
+    import torch
+    b, h, t, hd = q.shape
+    rep = h // k.shape[1]
+    k = torch.repeat_interleave(k, rep, dim=1).float()
+    v = torch.repeat_interleave(v, rep, dim=1).float()
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k) / math.sqrt(hd)
+    mask = torch.ones(t, k.shape[2], dtype=torch.bool,
+                      device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    del s
+    return torch.einsum("bhts,bhsd->bhtd", p.bfloat16().float(), v)
+
+
+def _p_rounding(gen) -> dict:
+    """The bf16 route's error at granite's B 8, T 2048, causal, against
+    float32 references (no rounding of the output) with P in float32, as
+    the TPU kernel keeps it, and with P rounded to bf16, as this kernel
+    does."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    b, t, (h, kh, hd) = 8, 2048, GRANITE_HEADS
+    q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen)
+    out = flash_attention(q, k, v, causal=True).float()
+    f32_p = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    bf16_p = _attention_bf16_p(q, k, v)
+    res = {"B": b, "T": t, "vs_f32_p": float((out - f32_p).abs().max()),
+           "vs_bf16_p": float((out - bf16_p).abs().max()),
+           "bf16_p_vs_f32_p": float((bf16_p - f32_p).abs().max())}
+    del q, k, v, out, f32_p, bf16_p
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
     """``paths``: {name: (cfg, launcher)} of the serve drives whose
     prefills launch the kernel."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ops import attend
     from repro_torch.kernels.flash_attention.ref import attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = [(case, dtype) for case in ATTN_CASES
+    # (case, dtype, model layout): every path shape both in the kernel's
+    # layout and in the model's, as the path hands it over through attend
+    checks = [(case, dtype, False) for case in ATTN_CASES
               for dtype in ("float32", "bfloat16")]
     for cfg, launcher in paths.values():
-        checks += [((b, t, t, *heads(cfg), True),
-                    "bfloat16") for b, t, _ in prefill_calls(launcher)]
+        checks += [((b, t, t, *heads(cfg), True), "bfloat16", model)
+                   for b, t, _ in prefill_calls(launcher)
+                   for model in (False, True)]
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for (b, t, s, nh, nkh, d, causal), dtype in checks:
-        q, k, v = _attn_inputs(b, t, s, nh, nkh, d, dtype, gen)
-        out = flash_attention(q, k, v, causal=causal)
+    for (b, t, s, nh, nkh, d, causal), dtype, model in checks:
+        q, k, v = _attn_inputs(b, t, s, nh, nkh, d, dtype, gen, model)
+        if model:
+            out = attend(q, k, v, causal=causal).transpose(1, 2)
+            q, k, v = _heads_first(q, k, v)
+        else:
+            out = flash_attention(q, k, v, causal=causal)
         want = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
@@ -783,37 +941,57 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
         tol = ATTN_TOL[dtype]
         check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
               f"flash_attention != plain: {(b, t, s, nh, nkh, d, causal)} "
-              f"{dtype}, max abs err {err}")
+              f"{dtype}{' through attend' if model else ''}, max abs err "
+              f"{err}")
         del q, k, v, out, want
     torch.cuda.empty_cache()
 
-    def timed(b, t, hs):
+    def timed(b, t, hs, model=False):
+        """The kernel's time at one shape, in the kernel's layout or, with
+        ``model``, through ``attend`` in the model's (the serving path's
+        call); the plain version and SDPA on the same views."""
         h, kh, hd = hs
-        q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen)
-        row = {"B": b, "T": t, "ms": _time_ms(
-            lambda: flash_attention(q, k, v, causal=True), reps)}
-        row["plain_ms"] = _time_ms(
-            lambda: attention_ref(q, k, v, causal=True), reps)
-        row["library_ms"] = _time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), reps)
+        q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen, model)
+        if model:
+            ms = _time_ms(lambda: attend(q, k, v), reps)
+            q, k, v = _heads_first(q, k, v)
+        else:
+            ms = _time_ms(lambda: flash_attention(q, k, v), reps)
+        row = {"B": b, "T": t, "ms": ms, "plain_ms": _time_ms(
+            lambda: attention_ref(q, k, v, causal=True), reps)}
+        row.update(_time_sdpa(q, k, v, reps))
         row.update(attn_work(b, t, t, h, kh, hd, True, "bfloat16"))
+        row.update(_rates(row))
         del q, k, v
         torch.cuda.empty_cache()
+        return row
+
+    def split(b, t):
+        q, k, v = _attn_inputs(b, t, t, *GRANITE_HEADS, "bfloat16", gen,
+                               True)
+        row = {"B": b, "T": t, **_split(lambda: attend(q, k, v))}
+        del q, k, v
         return row
 
     res = {"phase": "attn_kernel", "name": "flash_attention",
            "cases": len(checks), "tolerance": ATTN_TOL,
            "max_abs_err": max_err, "reps": reps,
-           "shapes": [timed(b, t, GRANITE_HEADS) for b, t in TIMED_SHAPES]}
-    # each serve drive's main path: n_layers launches per prefill call
-    rows = {name: [(timed(b, t, heads(cfg)), calls * cfg.n_layers)
+           "library": f"scaled_dot_product_attention, the faster of "
+                      f"{SDPA_FLASH} and the default dispatch",
+           "shapes": [timed(b, t, GRANITE_HEADS) for b, t in TIMED_SHAPES],
+           "split": [split(b, t) for b, t in SPLIT_SHAPES],
+           "p_rounding": _p_rounding(gen)}
+    # each serve drive's main path, as it runs: attend on the model's
+    # layout, n_layers launches per prefill call
+    rows = {name: [(timed(b, t, heads(cfg), True), calls * cfg.n_layers)
                    for b, t, calls in prefill_calls(launcher)]
             for name, (cfg, launcher) in paths.items()}
     res["paths"] = {name: _sum_path(r, "bfloat16")
                     for name, r in rows.items()}
     res["path"] = _sum_path([x for r in rows.values() for x in r],
                             "bfloat16")
+    for path in (*res["paths"].values(), res["path"]):
+        path.update(_rates(path))
     emit(res)
     return res
 

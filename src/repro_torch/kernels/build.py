@@ -29,11 +29,13 @@ def nvcc() -> str:
 
 def build_library(src: Path, lib: Path, log: Path,
                   force: bool = False) -> float:
-    """Compile ``src`` into ``lib`` unless an up-to-date library is there;
-    the compiler's output (ptxas register and shared-memory use per
-    kernel) goes to ``log``.  Returns the build seconds."""
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= src.stat().st_mtime):
+    """Compile ``src`` into ``lib`` unless an up-to-date library is there:
+    one newer than every file in ``src``'s directory, the headers it
+    includes too.  The compiler's output (ptxas register and shared-memory
+    use per kernel) goes to ``log``.  Returns the build seconds."""
+    newest = max(p.stat().st_mtime for p in src.parent.iterdir()
+                 if p.is_file())
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")

@@ -12,9 +12,16 @@ the same function as masking the rest); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu`` (built with ``nvcc`` at
 first use into ``build/`` beside this file, bound through ``ctypes``) or
 raises.  There is no fallback from the card to the plain version.
+
+The kernel reads q, k and v and writes o through their batch, head and
+row strides, so strided views (the model's (B, T, H, hd) tensors seen as
+(B, H, T, hd)) go in uncopied.  It needs hd contiguous and the base and
+every stride of more than one element 16-byte aligned; an operand that
+is not so is copied (``_operand``), nothing is refused for its layout.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 from pathlib import Path
@@ -28,6 +35,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 # tests/test_kernels.py (32, 64, 128, 256), plus 16 for the reduced configs
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's code for a failed tensor-map encode: this + CUresult
+_ENCODE_ERROR = 10000
 
 _SRC = Path(__file__).with_name("csrc") / "flash_attention.cu"
 _BUILD = Path(__file__).with_name("build")
@@ -56,7 +65,7 @@ def _load():
         lib = ctypes.CDLL(str(_LIB_PATH))
         fn = lib.flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -92,33 +101,76 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return s_valid
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
+def _readable(x: torch.Tensor) -> bool:
+    """Whether the kernel can read ``x`` in place: hd contiguous, base and
+    every stride of a dimension longer than 1 a positive multiple of 16
+    bytes (what TMA's tensor maps and the 16-byte loads take)."""
+    size = x.element_size()
+    if x.stride(3) != 1 or x.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st > 0 and st * size % 16 == 0)
+               for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where the kernel can read it, else a contiguous copy."""
+    if _readable(x):
+        return x
     x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    return x if _readable(x) else x.clone()
+
+
+def _kernel_strides(x: torch.Tensor) -> tuple:
+    """The (batch, head, row) element strides handed to the kernel; a
+    dimension of length 1 gets its contiguous stride, which is aligned
+    whatever the tensor's own."""
+    b, h, t, hd = x.shape
+    sb, sh, st, _ = x.stride()
+    return (sb if b > 1 else h * t * hd, sh if h > 1 else t * hd,
+            st if t > 1 else hd)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, s_valid: int = 0) -> torch.Tensor:
+                    causal: bool = True, s_valid: int = 0,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B, H, T, hd); k, v: (B, K, S, hd) -> (B, H, T, hd) in q's dtype.
-    ``s_valid`` (0 = S): keys at or past it are masked."""
+    ``s_valid`` (0 = S): keys at or past it are masked.  ``out``, where
+    given, receives the result and is returned: it must have q's shape,
+    dtype and device and a layout the kernel can write (see
+    ``_readable``); without it the result takes q's layout where q is
+    dense, else a contiguous one."""
     s_valid = _check(q, k, v, s_valid)
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                            or out.device != q.device
+                            or not _readable(out)):
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device} with strides "
+                         f"{out.stride()} cannot take the result")
     if q.device.type == "cpu":
-        return attention_ref(q, k[:, :, :s_valid], v[:, :, :s_valid],
-                             causal=causal)
+        res = attention_ref(q, k[:, :, :s_valid], v[:, :, :s_valid],
+                            causal=causal)
+        return res if out is None else out.copy_(res)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    if out is None:
+        out = torch.empty_like(q)
     b, h, t, hd = q.shape
     if out.numel() == 0:
         return out
     lib = _load()
+    strides = array.array("q", _kernel_strides(q) + _kernel_strides(k)
+                          + _kernel_strides(v) + _kernel_strides(out))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, k.shape[1], t, k.shape[2], hd,
-            s_valid, int(causal), 1.0 / math.sqrt(hd), stream)
+            s_valid, int(causal), 1.0 / math.sqrt(hd),
+            strides.buffer_info()[0], stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {err - _ENCODE_ERROR}")
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA launch failed with "
                            f"cudaError {err}")

@@ -1,10 +1,12 @@
 """Public wrapper: the model's layout in, the kernel's layout through.
 
-Model code carries (B, T, H, hd); the kernel takes (B, H, T, hd).
-``attend`` transposes, calls ``kernel.flash_attention`` and restores the
-layout.  The reference's ``mode`` is gone: the tensors' device picks the
-route (the CUDA kernel on the card, its plain version on the CPU).  The
-kernel masks a ragged T or S itself, so nothing is padded.
+Model code carries (B, T, H, hd); the kernel takes (B, H, T, hd) views.
+``attend`` hands it the transposed views of q, k and v and of an output
+allocated in (B, T, H, hd): the kernel reads and writes their strides, so
+nothing is copied on either side.  The reference's ``mode`` is gone: the
+tensors' device picks the route (the CUDA kernel on the card, its plain
+version on the CPU).  The kernel masks a ragged T or S itself, so nothing
+is padded.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
-    """q: (B,T,H,hd); k,v: (B,S,K,hd) -> (B,T,H,hd)."""
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal)
-    return out.transpose(1, 2)
+    """q: (B,T,H,hd); k,v: (B,S,K,hd) -> (B,T,H,hd), contiguous."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, out=out.transpose(1, 2))
+    return out

@@ -9,7 +9,9 @@ and the train launcher, bit for bit, since the probe is an integer XOR and
 the launcher is deterministic on the card; for the flash-attention kernel
 against its plain version on the card, ``tests/test_kernels.py``'s 2e-5
 (f32: the same arithmetic in another order) and 2e-2 (bf16: the output is
-rounded to bf16, so an element may sit one bf16 step apart); for the
+rounded to bf16, so an element may sit one bf16 step apart, and P enters
+the tensor cores' P.V in bf16), and bit for bit between a strided and a
+contiguous call (the same arithmetic on the same values); for the
 selective-scan kernel, 2e-4 (f32: the same recurrence, exponentials and
 sums rounded in another order) and 2e-2 for a bf16 y, with the f32 final
 state at 2e-4 either way; for the three one-shot delta kernels, bit for
@@ -39,7 +41,9 @@ from repro_torch.kernels.delta_encode.ref import (changed_bitmap_ref,
                                                   delta_apply_ref,
                                                   delta_encode_ref,
                                                   fused_tiles_ref)
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                        flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.pcor.kernel import pcor
 from repro_torch.kernels.pcor.ops import correlate, pcor_strip
@@ -252,6 +256,59 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype, tol):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+BF16_CASES = [
+    # (B, T, S, H, K, hd, causal): every head size, causal with a ragged
+    # T and non-causal with S > T; then hymba-1.5b's group of 5 (25/5
+    # heads) and granite-3-2b's prefill heads at B 8, T 2048
+    *((2, 150, 150, 4, 2, hd, True) for hd in HEAD_DIMS),
+    *((1, 100, 230, 4, 2, hd, False) for hd in HEAD_DIMS),
+    (1, 97, 97, 25, 5, 64, True),
+    (2, 333, 333, 25, 5, 64, True),
+    (8, 2048, 2048, 32, 8, 64, True),
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_flash_attention_bf16_matches_plain_version(cuda, case):
+    b, t, s, h, kh, hd, causal = case
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(cuda)
+               for shape in ((b, h, t, hd), (b, kh, s, hd), (b, kh, s, hd)))
+    out = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_views_in_place(cuda, hd, dtype):
+    """The model's (B, T, H, hd) tensors, and slices of one fused
+    (B, T, H + 2K, hd) tensor, go in as transposed views: the output,
+    written through its own strides, equals the contiguous call's bit for
+    bit, and each call is one launch."""
+    b, t, h, kh = 2, 200, 8, 2
+    gen = torch.Generator().manual_seed(8)
+    fused = torch.randn((b, t, h + 2 * kh, hd), generator=gen).to(dtype) \
+        .to(cuda)
+    q, k, v = (fused[:, :, :h], fused[:, :, h:h + kh], fused[:, :, h + kh:])
+    want = flash_attention(*(x.transpose(1, 2).contiguous()
+                             for x in (q, k, v)), causal=True)
+    out = torch.empty((b, t, h, hd), dtype=dtype, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True,
+                          out=out.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out.transpose(1, 2), want)
+    assert torch.equal(attn_ops.attend(q, k, v, causal=True),
+                       want.transpose(1, 2))
 
 
 def test_flash_attention_masks_keys_past_s_valid(cuda):
