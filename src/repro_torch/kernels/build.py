@@ -1,7 +1,8 @@
 """Build a kernel source with ``nvcc`` into a shared library with a plain C
 interface, for ``ctypes``.  Nothing here runs at import: a kernel is built
 at its first launch (or by ``chip_smoke.py``'s build phase), into the
-gitignored ``build/`` beside its source.
+gitignored ``build/`` beside its source.  ``call_on`` and ``stream_ptr``
+give a wrapper its launch context with little host work.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -52,3 +55,20 @@ def build_library(src: Path, lib: Path, log: Path,
 
 def read_log(log: Path) -> str:
     return log.read_text() if log.exists() else ""
+
+
+def call_on(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` current: directly where it already is
+    (a device guard would swap the device twice on every launch), else
+    under ``torch.cuda.device``."""
+    if device.index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The ``cudaStream_t`` of ``device``'s current stream, which the
+    kernels launch on; ``torch.cuda.current_stream(device).cuda_stream``
+    builds a ``Stream`` object on every call to read the same pointer."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -24,8 +24,9 @@
 // changed, against the 3N minimum; a single-pass decoupled look-back
 // would reach 3N.
 //
-// The one-shot delta API's three kernels, each one pass of one block per
-// tile with 16-byte loads, bounded by bytes like the probe:
+// The one-shot delta API's three kernels, each one pass with 16-byte
+// loads, bounded by bytes like the probe (the first two one block per
+// tile, for the tile's flag):
 //   changed_bitmap  replaces kernel.py::changed_bitmap (_bitmap_kernel):
 //                   the flag pass alone, reads 2N;
 //   delta_encode    replaces kernel.py::delta_encode (_delta_kernel): the
@@ -34,6 +35,14 @@
 //                   new = old ^ delta, reads 2N and writes N.
 // Each reads every input byte once and writes every output byte once,
 // the least these functions can move.
+//
+// delta_apply has no per-tile output, so it need not follow the tiles:
+// it streams the flat int4 range, one 128-thread block per 4 KB of each
+// operand, each thread issuing both of its 16-byte loads of each operand
+// before its stores, the shape of PyTorch's own vectorized elementwise
+// kernels.  On the card a grid-stride grid of a few blocks per SM, deeper
+// unrolls and streaming cache hints were each slower, not faster
+// (chip_smoke.py's delta_ops phase times it beside torch.bitwise_xor).
 //
 // Plain C interface for ctypes; each entry point returns
 // cudaGetLastError() after its launches.  Launches on the caller's
@@ -47,6 +56,10 @@ constexpr int kTileInts = 8 * 1024;
 constexpr int kTileVecs = kTileInts / 4;   // int4 per tile: 2048
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;
+constexpr int kApplyThreads = 128;
+constexpr int kApplyUnroll = 2;
+constexpr int kApplyStep = kApplyThreads * kApplyUnroll;   // int4 per block
+static_assert(kTileVecs % kApplyStep == 0, "whole tiles, no ragged edge");
 
 __global__ void __launch_bounds__(kThreads)
 flag_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
@@ -133,16 +146,23 @@ encode_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
   if (threadIdx.x == 0) bitmap[blockIdx.x] = any ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-xor_tiles(const int4* __restrict__ o, const int4* __restrict__ d,
-          int4* __restrict__ out) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * kTileVecs;
+// out = o ^ d over gridDim.x * kApplyStep int4
+__global__ void __launch_bounds__(kApplyThreads)
+xor_flat(const int4* __restrict__ o, const int4* __restrict__ d,
+         int4* __restrict__ out) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * kApplyStep
+                      + threadIdx.x;
+  int4 a[kApplyUnroll], b[kApplyUnroll];
 #pragma unroll
-  for (int j = threadIdx.x; j < kTileVecs; j += kThreads) {
-    const int4 a = o[base + j];
-    const int4 b = d[base + j];
-    out[base + j] = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    a[u] = o[base + u * kApplyThreads];
+    b[u] = d[base + u * kApplyThreads];
   }
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u)
+    out[base + u * kApplyThreads] =
+        make_int4(a[u].x ^ b[u].x, a[u].y ^ b[u].y, a[u].z ^ b[u].z,
+                  a[u].w ^ b[u].w);
 }
 
 }  // namespace
@@ -187,8 +207,10 @@ extern "C" int delta_encode(const void* o32, const void* n32, void* delta,
 extern "C" int delta_apply(const void* o32, const void* d32, void* out,
                            long long nblk, void* stream) {
   if (nblk <= 0) return 0;
-  xor_tiles<<<static_cast<unsigned>(nblk), kThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = nblk * (kTileVecs / kApplyStep);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  xor_flat<<<static_cast<unsigned>(blocks), kApplyThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(o32), static_cast<const int4*>(d32),
       static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -29,7 +29,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library, read_log
+from repro_torch.kernels.build import (build_library, call_on, read_log,
+                                      stream_ptr)
 from repro_torch.kernels.delta_encode.ref import (changed_bitmap_ref,
                                                   delta_apply_ref,
                                                   delta_encode_ref,
@@ -65,7 +66,9 @@ def _load():
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        # PyDLL: the launches are short and do not block, so a call keeps
+        # the GIL rather than releasing and taking it back
+        lib = ctypes.PyDLL(str(_LIB_PATH))
         for name, n_ptrs in _ENTRY_POINTS.items():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong,
@@ -79,21 +82,23 @@ def _on_card(name: str, a: torch.Tensor, b: torch.Tensor) -> bool:
     """Check a pair of (nblk, SUB, LANE) int32 tile tensors; -> True for
     the kernel route (CUDA), False for the plain one (CPU).  Raises on
     anything the kernel does not take."""
-    for what, t in (("first", a), ("second", b)):
-        if t.dtype != torch.int32 or t.dim() != 3 \
-                or tuple(t.shape[1:]) != (SUB, LANE):
-            raise ValueError(f"{name}: {what} input must be (nblk, {SUB}, "
-                             f"{LANE}) int32, got {tuple(t.shape)} "
-                             f"{t.dtype}")
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"{name}: inputs differ in shape or device")
-    if a.device.type == "cpu":
+    if not (a.dtype == b.dtype == torch.int32 and a.shape == b.shape
+            and a.dim() == 3 and a.shape[1:] == (SUB, LANE)):
+        raise ValueError(f"{name}: inputs must be two (nblk, {SUB}, {LANE}) "
+                         f"int32 tensors of one shape, got "
+                         f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} "
+                         f"{b.dtype}")
+    dev = a.device
+    if dev != b.device:
+        raise ValueError(f"{name}: inputs on different devices ({dev}, "
+                         f"{b.device})")
+    if dev.type == "cpu":
         return False
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {a.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
+    if (a.data_ptr() | b.data_ptr()) % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
     return True
 
@@ -103,12 +108,10 @@ def _launch(wrapper, *tensors: torch.Tensor) -> None:
     over the first tensor's tiles, on the current stream; count the
     launch on ``wrapper``."""
     name = wrapper.__name__
-    lib = _load()
     dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*(t.data_ptr() for t in tensors),
-                                 tensors[0].shape[0], stream)
+    err = call_on(dev, getattr(_load(), name),
+                  *(t.data_ptr() for t in tensors), tensors[0].shape[0],
+                  stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
                            f"{err}")
@@ -116,12 +119,12 @@ def _launch(wrapper, *tensors: torch.Tensor) -> None:
 
 
 def _tiles_like(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty((t.shape[0], SUB, LANE), dtype=torch.int32,
-                       device=t.device)
+    """An (nblk, SUB, LANE) int32 output beside the checked tiles ``t``."""
+    return torch.empty_like(t)
 
 
 def _bitmap_like(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape[0], dtype=torch.int32, device=t.device)
+    return t.new_empty(t.shape[0])
 
 
 def fused_delta_tiles(o32: torch.Tensor, n32: torch.Tensor):

@@ -13,25 +13,111 @@ version (``ref.ssm_scan_ref``); a CUDA tensor launches the hand-written
 kernel in ``csrc/ssm_scan.cu`` (built with ``nvcc`` at first use into
 ``build/`` beside this file, bound through ``ctypes``) or raises.  There
 is no fallback from the card to the plain version.
+
+``plan`` is the launch rule: how many lanes of a warp share one channel's
+states, and whether T is cut into chunks that run side by side (two CUDA
+kernels a call instead of one).  It is a plain function of the shapes and
+the card's SM count, so the CPU tests can hold its grids.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import build_library, read_log
+from repro_torch.kernels.build import (build_library, call_on, read_log,
+                                      stream_ptr)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 MAX_STATE = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the launch rule; THREADS is csrc/ssm_scan.cu's kThreads
+THREADS = 128
+LANES = (1, 2)           # lanes per channel, each holding 4 to 16 states
+WARPS_PER_SM = 12        # fewer than this on an SM and the scan waits
+MIN_CHUNK = 64           # shortest time chunk worth a second pass
+CHUNK_ALIGN = 32         # chunk lengths are whole staged tiles
+MAX_CHUNKS = 16
 
 _SRC = Path(__file__).with_name("csrc") / "ssm_scan.cu"
 _BUILD = Path(__file__).with_name("build")
 _LIB_PATH = _BUILD / "libssm_scan.so"
 _LOG_PATH = _BUILD / "nvcc.log"
 _lib = None
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One call's launch geometry.  A block of ``THREADS`` threads covers
+    ``channels`` channels of one batch row, ``lanes`` threads a channel,
+    each thread ``states`` of the channel's ``state_pad`` states (N
+    rounded up to a power of two >= 4).  T is cut into ``chunks`` of
+    ``chunk_len`` steps (the last one shorter); with more than one chunk
+    pass 1 scans chunks 0 .. K-2 and pass 2 chunks 1 .. K-1."""
+    lanes: int
+    chunks: int
+    chunk_len: int
+    state_pad: int
+
+    @property
+    def states(self) -> int:
+        return self.state_pad // self.lanes
+
+    @property
+    def channels(self) -> int:
+        return THREADS // self.lanes
+
+    @property
+    def kernels(self) -> int:
+        """CUDA kernels one call runs."""
+        return 1 if self.chunks == 1 else 2
+
+    def grid(self, b: int, di: int) -> tuple:
+        """Blocks of each kernel: (channel blocks, chunks, batch rows)."""
+        return (_cdiv(di, self.channels), max(self.chunks - 1, 1), b)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _state_pad(n: int) -> int:
+    return max(4, 1 << (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, t: int, di: int, n: int, sms: int) -> Plan:
+    """The launch rule.  The fewest lanes per channel that give every SM
+    ``WARPS_PER_SM`` warps (fewer lanes, fewer instructions per state
+    update); where even the most lanes leave it short, T is cut into the
+    chunks that come nearest to it, at least ``MIN_CHUNK`` steps each and
+    at most ``MAX_CHUNKS`` (each pass runs K - 1 chunks side by side, so
+    K = 2 would add a pass and no parallelism)."""
+    pad = _state_pad(n)
+    lanes_ok = [ln for ln in LANES if 4 <= pad // ln <= 16]
+    target = WARPS_PER_SM * sms
+
+    def warps(ln):
+        return b * _cdiv(di, THREADS // ln) * THREADS // 32
+    lanes = next((ln for ln in lanes_ok if warps(ln) >= target),
+                 lanes_ok[-1])
+    have = warps(lanes)
+    k = 1 if have >= target else min(1 + round(target / have), MAX_CHUNKS,
+                                      t // MIN_CHUNK)
+    if k >= 3:
+        chunk_len = _cdiv(_cdiv(t, k), CHUNK_ALIGN) * CHUNK_ALIGN
+        k = _cdiv(t, chunk_len)
+        if k >= 3:
+            return Plan(lanes, k, chunk_len, pad)
+    return Plan(lanes, 1, t, pad)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build(force: bool = False) -> float:
@@ -50,9 +136,11 @@ def _load():
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        # PyDLL: the launch is short and does not block, so the call keeps
+        # the GIL rather than releasing and taking it back
+        lib = ctypes.PyDLL(str(_LIB_PATH))
         fn = lib.ssm_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -97,24 +185,42 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         return ssm_scan_ref(x, dt, bm, cm, a, return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for device {x.device}")
-    x, dt, bm, cm, a = (v.contiguous() for v in (x, dt, bm, cm, a))
     b, t, di = x.shape
-    n = bm.shape[-1]
-    y = torch.empty_like(x)
-    h = torch.empty((b, di, n), dtype=torch.float32, device=x.device)
+    y, h = launch(x, dt, bm, cm, a, plan(b, t, di, bm.shape[-1],
+                                         _sm_count(x.device.index or 0)))
     if h.numel():
-        lib = _load()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.ssm_scan_fwd(
-                x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                a.data_ptr(), y.data_ptr(), h.data_ptr(),
-                _DTYPE_CODES[x.dtype], b, t, di, n, stream)
-        if err != 0:
-            raise RuntimeError(f"ssm_scan: CUDA launch failed with "
-                               f"cudaError {err}")
         ssm_scan.launches += 1
     return (y, h) if return_state else y
 
 
 ssm_scan.launches = 0
+
+
+def launch(x, dt, bm, cm, a, how: Plan) -> tuple:
+    """Run the kernel on CUDA tensors with the launch geometry ``how``;
+    -> (y, h).  ``ssm_scan`` calls it with ``plan``'s choice (and counts
+    the call); ``chip_smoke.py`` times other plans through it."""
+    x, dt, bm, cm, a = (v.contiguous() for v in (x, dt, bm, cm, a))
+    b, t, di = x.shape
+    n = bm.shape[-1]
+    y = torch.empty_like(x)
+    h = x.new_empty((b, di, n), dtype=torch.float32)
+    if not h.numel():
+        return y, h
+    # the chunk carry's scratch: each chunk's end states, then its decay
+    # products, (B, K - 1, Di, N) f32 each
+    ends = prods = None
+    if how.chunks > 1:
+        scratch = x.new_empty(2 * b * (how.chunks - 1) * di * n,
+                              dtype=torch.float32)
+        ends = scratch.data_ptr()
+        prods = ends + scratch.numel() * 2   # half the bytes on
+    err = call_on(
+        x.device, _load().ssm_scan_fwd, x.data_ptr(), dt.data_ptr(),
+        bm.data_ptr(), cm.data_ptr(), a.data_ptr(), y.data_ptr(),
+        h.data_ptr(), ends, prods, _DTYPE_CODES[x.dtype], b, t, di, n,
+        how.lanes, how.chunks, how.chunk_len, stream_ptr(x.device))
+    if err != 0:
+        raise RuntimeError(f"ssm_scan: CUDA launch failed with cudaError "
+                           f"{err}")
+    return y, h

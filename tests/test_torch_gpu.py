@@ -115,6 +115,21 @@ def test_one_shot_delta_kernels_match_plain_versions(cuda, dtype):
     assert torch.equal(back, n32)
 
 
+@pytest.mark.parametrize("nblk", [1, 7, 12321])
+def test_delta_apply_matches_plain_version(cuda, nblk):
+    """One tile, an odd tile count, and a leaf one tile above the largest
+    leaf of the train state's launches (12,320 tiles), bit for bit."""
+    gen = torch.Generator().manual_seed(nblk)
+    o32, d32 = (torch.randint(-2 ** 31, 2 ** 31 - 1, (nblk, 8, 1024),
+                              dtype=torch.int32, generator=gen).to(cuda)
+                for _ in range(2))
+    before = delta_apply.launches
+    new = delta_apply(o32, d32)
+    assert delta_apply.launches == before + 1
+    assert torch.equal(new, delta_apply_ref(o32, d32))
+    assert torch.equal(new ^ d32, o32)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_one_shot_delta_api_matches_cpu(cuda, dtype):
     gen = torch.Generator().manual_seed(19)
@@ -327,7 +342,35 @@ SSM_CASES = [
     (2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16), (2, 128, 384, 4),
     (1, 33, 257, 16), (2, 19, 70, 1), (1, 40, 33, 2), (2, 45, 100, 32),
     (1, 333, 3200, 16), (2, 97, 8192, 16),
+    # the scan design's edges: N 5 and 24 (no power of two), T 1, Di no
+    # multiple of a block's channels at one lane (128) and at two (64)
+    (2, 45, 100, 5), (1, 200, 300, 24), (1, 1, 64, 16), (2, 1, 3200, 16),
+    (8, 64, 200, 16), (1, 333, 3201, 16),
+    # at hymba-1.5b's width on a 132-SM card the launch rule cuts these
+    # into 3 time chunks whose last one is a whole chunk (64, 64, 64), one
+    # step (96, 96, 1) and a chunk less one (96, 96, 95)
+    (1, 192, 3200, 16), (1, 193, 3200, 16), (1, 287, 3200, 16),
 ]
+# B 1, T 8192 at hymba-1.5b's width: the longest carry chain
+SSM_LONG = (1, 8192, 3200, 16)
+
+
+def _ssm_inputs(case, dtype, cuda, seed=7, model_a=False):
+    """``tests/test_kernels.py``'s distribution (dt small and positive,
+    a < 0); ``model_a``: a as the SSM block initialises it,
+    -exp(log(1..N)) on every channel."""
+    b, t, di, n = case
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, t, di), generator=gen).to(dtype).to(cuda)
+    dt = (0.1 * torch.randn((b, t, di), generator=gen).abs()).to(dtype) \
+        .to(cuda)
+    bm, cm = (torch.randn((b, t, n), generator=gen).to(cuda)
+              for _ in range(2))
+    a = -torch.randn((di, n), generator=gen).abs().to(cuda)
+    if model_a:
+        a = -torch.arange(1, n + 1, dtype=torch.float32).expand(di, n) \
+            .contiguous().to(cuda)
+    return x, dt, bm, cm, a
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
@@ -335,13 +378,7 @@ SSM_CASES = [
 @pytest.mark.parametrize("case", SSM_CASES)
 def test_ssm_scan_matches_plain_version(cuda, case, dtype, tol):
     b, t, di, n = case
-    gen = torch.Generator().manual_seed(7)
-    x = torch.randn((b, t, di), generator=gen).to(dtype).to(cuda)
-    dt = (0.1 * torch.randn((b, t, di), generator=gen).abs()).to(dtype) \
-        .to(cuda)
-    bm, cm = (torch.randn((b, t, n), generator=gen).to(cuda)
-              for _ in range(2))
-    a = -torch.randn((di, n), generator=gen).abs().to(cuda)
+    x, dt, bm, cm, a = _ssm_inputs(case, dtype, cuda)
     before = ssm_scan.launches
     y, h = ssm_scan(x, dt, bm, cm, a, return_state=True)
     assert ssm_scan.launches == before + 1
@@ -350,6 +387,37 @@ def test_ssm_scan_matches_plain_version(cuda, case, dtype, tol):
     assert y.dtype == dtype and y.shape == x.shape
     assert h.dtype == torch.float32 and h.shape == (b, di, n)
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_long_carry_chain(cuda, dtype):
+    """T 8192 through every chunk's carry, a drawn as in
+    ``tests/test_kernels.py``: the final state within 2e-4 of the plain
+    version, and a bf16 y within 2e-2.  (Some a lie within 1e-4 of 0, so
+    memories outlast T; there the plain version's own f32 rounding of y is
+    farther than 2e-4 from float64, and ``chip_smoke.py`` records the f32
+    y against both.)"""
+    x, dt, bm, cm, a = _ssm_inputs(SSM_LONG, dtype, cuda)
+    y, h = ssm_scan(x, dt, bm, cm, a, return_state=True)
+    y_ref, h_ref = ssm_scan_ref(x, dt, bm, cm, a, return_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_ssm_scan_long_carry_chain_at_the_models_decays(cuda):
+    """T 8192 with a as the SSM block initialises it: y and the final
+    state within 2e-4 of the plain version."""
+    x, dt, bm, cm, a = _ssm_inputs(SSM_LONG, torch.float32, cuda,
+                                   model_a=True)
+    y, h = ssm_scan(x, dt, bm, cm, a, return_state=True)
+    y_ref, h_ref = ssm_scan_ref(x, dt, bm, cm, a, return_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(h, h_ref, rtol=2e-4, atol=2e-4)
 
 

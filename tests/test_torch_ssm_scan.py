@@ -1,7 +1,10 @@
 """Port parity for the selective-scan kernel's CPU route and the SSM block.
 
-The port's ``ssm_scan_ref`` and ``ops.selective_scan`` (plain version, CPU
-tensors) against the JAX package's ``selective_scan`` in ``interpret``
+The launch rule (``kernel.plan``) at the serving paths' shapes and a few
+SM counts: every (b, d, n) owned by one thread, every step in one time
+chunk.  The port's ``ssm_scan_ref`` and ``ops.selective_scan`` (plain
+version, CPU tensors) against the JAX package's ``selective_scan`` in
+``interpret``
 mode (the Pallas kernel) and in ``ref`` mode, on ``tests/test_kernels.py``'s
 ``SSM_CASES`` (N 4, 8 and 16; T and Di no multiple of any block).  Then
 ``models.ssm.ssm_train`` both ways: with ``return_state`` (the kernel's
@@ -29,6 +32,7 @@ from repro.kernels.ssm_scan.ops import selective_scan as j_selective_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_scan_ref
 from repro.models import ssm as jssm
 from repro_torch.kernels.ssm_scan import ops
+from repro_torch.kernels.ssm_scan import kernel as scan_kernel
 from repro_torch.kernels.ssm_scan.kernel import MAX_STATE, ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models import ssm
@@ -156,6 +160,73 @@ def test_mismatched_devices_raise():
 def test_device_without_a_kernel_raises():
     with pytest.raises(ValueError, match="no kernel for device"):
         ssm_scan(*_small(device="meta"))
+
+
+# ------------------------------------------------------ the launch rule
+# the serving paths' scan shapes: falcon-mamba-7b's batched launcher
+# prefill and the engines' batch-1 prefills at falcon's and hymba's widths
+PATH_SHAPES = [(8, 1024, 8192, 16)] + [
+    (1, t, di, 16) for di in (8192, 3200)
+    for t in (97, 250, 511, 512, 777, 1024, 1333, 1700, 2000)]
+
+
+def _covered(how, b, di, n):
+    """How often each (b, d, n) is owned by one thread of a block of the
+    grid, as ``csrc/ssm_scan.cu`` maps them: block (x, ., z), thread i ->
+    channel x * channels + i // lanes, states (i % lanes) * states + r,
+    those past Di or N masked."""
+    gx, _, gz = how.grid(b, di)
+    assert gz == b
+    count = np.zeros((b, di, n), np.int64)
+    tid = np.arange(scan_kernel.THREADS)
+    for x in range(gx):
+        d = x * how.channels + tid // how.lanes
+        for r in range(how.states):
+            s = (tid % how.lanes) * how.states + r
+            keep = (d < di) & (s < n)
+            count[:, d[keep], s[keep]] += 1
+    return count
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78, 16])
+@pytest.mark.parametrize("case", PATH_SHAPES + [(1, 8192, 3200, 16),
+                                                (2, 45, 100, 5)])
+def test_launch_plan_covers_every_state_and_step_once(case, sms):
+    b, t, di, n = case
+    how = scan_kernel.plan(b, t, di, n, sms)
+    assert how.lanes in scan_kernel.LANES
+    assert 4 <= how.states <= 16 and how.states * how.lanes >= n
+    assert how.channels * how.lanes == scan_kernel.THREADS
+    assert (_covered(how, b, di, n) == 1).all()
+    # chunk k holds steps [k L, min(T, (k + 1) L)); each kernel's grid
+    # runs K - 1 chunks side by side (pass 1 chunks 0 .. K-2, pass 2
+    # chunks 1 .. K-1), or the one chunk: every step lies in one non-empty
+    # chunk
+    k = how.chunks
+    assert how.grid(b, di)[1] == max(k - 1, 1)
+    assert how.kernels == (1 if k == 1 else 2)
+    assert k == 1 or 3 <= k <= scan_kernel.MAX_CHUNKS
+    spans = [range(c * how.chunk_len, min(t, (c + 1) * how.chunk_len))
+             for c in range(k)]
+    assert all(len(sp) for sp in spans) and sorted(
+        i for sp in spans for i in sp) == list(range(t))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_launch_plan_fills_the_card(sms):
+    """One lane per channel where that already gives every SM
+    ``WARPS_PER_SM`` warps (falcon's batched prefill); otherwise two, and
+    batch-1 prefills long enough for ``MIN_CHUNK``-step chunks are cut
+    into time chunks."""
+    big = scan_kernel.plan(8, 1024, 8192, 16, sms)
+    assert (big.lanes, big.chunks) == (1, 1)
+    for t, di in ((1024, 8192), (2000, 3200), (8192, 3200)):
+        how = scan_kernel.plan(1, t, di, 16, sms)
+        assert how.lanes == 2 and how.chunks >= 3
+        assert how.chunk_len >= scan_kernel.MIN_CHUNK
+        assert how.chunk_len % scan_kernel.CHUNK_ALIGN == 0
+    short = scan_kernel.plan(1, 97, 8192, 16, sms)
+    assert short.chunks == 1 and short.chunk_len == 97
 
 
 # ------------------------------------------------------------ the block
