@@ -12,14 +12,19 @@ Phases, each printing one JSON line:
 1. ``gpu``: the card's name and power limit (``nvidia-smi``).
 2. ``build``: ``nvcc`` of every kernel source of the port, in parallel;
    then the ``HGMMA`` (wgmma) instructions of each function in
-   ``cuobjdump -sass`` of ``libflash_attention.so``: every bf16 attention
-   kernel must have some, or the phase fails; and no instantiation of the
-   scan may spill registers (``ptxas``'s spill stores and loads).
+   ``cuobjdump -sass`` of ``libflash_attention.so`` and ``libpcor.so``:
+   every bf16 attention kernel and the correlation's tile-pair kernel
+   must have some, or the phase fails; and no instantiation of the scan
+   or the correlation may spill registers (``ptxas``'s spill stores and
+   loads).
 3. ``kernel``: ``fused_delta_tiles`` against its plain PyTorch version, bit
    for bit, on leaves of 1 and 12,320 tiles with ragged tails, every
    kernel dtype, and no / all / first-and-last / a random 10 % of tiles
    changed; then, at the training path's launch shapes, checked again and
-   timed with CUDA events beside the plain version and the bytes bound.
+   timed with CUDA events beside the plain version and the bytes bound
+   (every tile changed: 3N), and the largest of them again with a random
+   10 % of its tiles changed, beside its own bytes (2N and the changed
+   tiles).
 4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
@@ -101,7 +106,10 @@ Phases, each printing one JSON line:
     within 1e-5 of the plain version and 1e-4 of a float64 correlation,
     its diagonal within 1e-5 of 1, and the strips equal its rows bit for
     bit.  Then the kernel timed for the full matrix and per strip, beside
-    the plain version, ``torch.corrcoef`` and the operations bound.
+    the plain version, ``torch.corrcoef`` and two operations bounds: the
+    kernel's route, 3xTF32 on the tensor cores (three TF32 products per
+    FLOP of one triangle), whose share each row reports and which no row
+    may beat, and float32 on the CUDA cores.
 
 The last two run after the others, so that the multi-GB tensors they
 leave in the allocator's cache cannot touch the train phase, and with
@@ -143,7 +151,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 # H100 SXM, NVIDIA data sheet: device memory rate, dense peak operations
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 REPLACES = "src/repro/kernels/delta_encode/kernel.py:151"
 SOURCE = "src/repro_torch/kernels/delta_encode/csrc/fused_delta.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention/kernel.py:78"
@@ -272,17 +280,24 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(mods)) as pool:
         futs = {name: pool.submit(m.build, True) for name, m in mods.items()}
         secs = {name: f.result() for name, f in futs.items()}
-    # every bf16 attention kernel must run its products on the tensor cores
+    # every bf16 attention kernel and the correlation's tile-pair kernel
+    # must run their products on the tensor cores
     hgmma = sass_count(fa_kernel._LIB_PATH, "HGMMA")
-    emit({"phase": "build", "seconds": secs, "hgmma": hgmma, "ptxas": {
-        name: [ln.strip() for ln in m.build_log().splitlines()
-               if "Used" in ln or "spill" in ln]
-        for name, m in mods.items()}})
+    pcor_hgmma = sass_count(pcor_kernel._LIB_PATH, "HGMMA")
+    emit({"phase": "build", "seconds": secs, "hgmma": hgmma,
+          "pcor_hgmma": pcor_hgmma, "ptxas": {
+              name: [ln.strip() for ln in m.build_log().splitlines()
+                     if "Used" in ln or "spill" in ln]
+              for name, m in mods.items()}})
     wgmma = {fn: n for fn, n in hgmma.items() if "attn_fwd_wgmma" in fn}
     check(len(wgmma) > 0 and all(n > 0 for n in wgmma.values()),
           f"libflash_attention.so: HGMMA per wgmma kernel {wgmma}")
-    spills = spilled(ssm_kernel.build_log())
-    check(not spills, f"libssm_scan.so: instantiations that spill {spills}")
+    pairs = {fn: n for fn, n in pcor_hgmma.items() if "corr_pairs" in fn}
+    check(len(pairs) > 0 and all(n > 0 for n in pairs.values()),
+          f"libpcor.so: HGMMA in the tile-pair kernel {pairs}")
+    for name, m in (("ssm_scan", ssm_kernel), ("pcor", pcor_kernel)):
+        spills = spilled(m.build_log())
+        check(not spills, f"lib{name}.so: instantiations that spill {spills}")
 
 
 def spilled(log: str) -> list:
@@ -456,28 +471,60 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
     launches = path_launches(cfg)
     ms = plain_ms = 0.0
     moved = 0
+    shape_ms = {}
+
+    def timed(o32, n32):
+        """Check one pair against the plain version; -> (kernel ms, plain
+        ms, bytes the function moves: inputs read once, the bitmap and
+        the k changed tiles written once)."""
+        bm, tiles = fused_delta_tiles(o32, n32)
+        bm_ref, tiles_ref = fused_tiles_ref(o32, n32)
+        k = int(bm_ref.sum())
+        check(torch.equal(bm, bm_ref) and torch.equal(tiles[:k], tiles_ref),
+              f"kernel != plain at the path's shape of {o32.shape[0]} tiles")
+        del bm, tiles, bm_ref, tiles_ref
+        nblk = o32.shape[0]
+        return (_time_ms(lambda: fused_delta_tiles(o32, n32), reps),
+                _time_ms(lambda: fused_tiles_ref(o32, n32), reps),
+                (2 * nblk + k) * TILE_BYTES + 4 * nblk)
+
     for nblk in sorted(set(launches)):
         count = launches.count(nblk)
         o32 = torch.randint(-2**31, 2**31 - 1, (nblk, 8, 1024),
                             dtype=torch.int32, device="cuda", generator=gen)
         n32 = o32 ^ 1
-        bm, tiles = fused_delta_tiles(o32, n32)
-        bm_ref, tiles_ref = fused_tiles_ref(o32, n32)
-        check(torch.equal(bm, bm_ref) and torch.equal(tiles, tiles_ref),
-              f"kernel != plain at the path's shape of {nblk} tiles")
+        k_ms, p_ms, nbytes = timed(o32, n32)
         cases += 1
-        del bm, tiles, bm_ref, tiles_ref
-        ms += count * _time_ms(lambda: fused_delta_tiles(o32, n32), reps)
-        plain_ms += count * _time_ms(lambda: fused_tiles_ref(o32, n32), reps)
-        # inputs read once, bitmap + k = nblk tiles written once
-        moved += count * (3 * nblk * TILE_BYTES + 4 * nblk)
+        shape_ms[nblk] = k_ms
+        ms += count * k_ms
+        plain_ms += count * p_ms
+        moved += count * nbytes
         del o32, n32
     torch.cuda.empty_cache()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
+
+    # the largest launch again with a random 10 % of its tiles changed
+    # (a probe between two rounds that left most tiles alone)
+    nblk = max(launches)
+    o32 = torch.randint(-2**31, 2**31 - 1, (nblk, 8, 1024),
+                        dtype=torch.int32, device="cuda", generator=gen)
+    n32 = o32.clone()
+    picked = torch.randperm(nblk, generator=gen, device="cuda")[:nblk // 10]
+    n32[picked, 0, 0] ^= 1
+    k_ms, p_ms, nbytes = timed(o32, n32)
+    cases += 1
+    random10 = {"tiles": nblk, "changed": int(picked.numel()), "ms": k_ms,
+                "plain_ms": p_ms, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "all_changed_ms": shape_ms[nblk],
+                "all_changed_bytes": (3 * nblk) * TILE_BYTES + 4 * nblk}
+    del o32, n32, picked
+    torch.cuda.empty_cache()
     res = {"phase": "kernel", "name": "fused_delta_tiles", "cases": cases,
            "tolerance": "bit for bit", "max_abs_err": max_err, "launches_per_snapshot": len(launches),
            "snapshot_tiles": sum(launches), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": "bytes", "reps": reps}
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+           "random10": random10, "reps": reps}
     emit(res)
     return res
 
@@ -726,17 +773,22 @@ def _sprint_exec(x, workers: int = WORKERS) -> tuple:
 
 def pcor_work(rows: int, g: int, s: int) -> dict:
     """Operations and bytes of ``rows`` rows of the correlation of a (g, s)
-    float32 matrix, and its bound: the FLOP at the card's float32 peak
-    (CUDA cores), x read once and the rows written once.  The matrix is
+    float32 matrix, and its bounds: x read once and the rows written once,
+    against the FLOP on the route the kernel takes, 3xTF32 on the tensor
+    cores (three TF32 products per FLOP, ``ops``), and, beside it, in
+    float32 on the CUDA cores (``fp32_bound_ms``).  The matrix is
     symmetric, so the strip's own (rows, rows) diagonal block needs only
     its upper triangle, rows (rows + 1) s FLOP, beside 2 s rows (g - rows)
     for the rest; the full matrix needs g (g + 1) s."""
-    ops = 2 * s * rows * (g - rows) + s * rows * (rows + 1)
+    flop = 2 * s * rows * (g - rows) + s * rows * (rows + 1)
     nbytes = 4 * (g * s + rows * g)
-    ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    tc_ms = 3 * flop / PEAK_OPS_PER_S["tf32"] * 1e3
+    fp32_ms = flop / PEAK_OPS_PER_S["float32"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    return {"flop": flop, "ops": 3 * flop, "bytes": nbytes,
+            "bound_ms": max(tc_ms, bytes_ms),
+            "bound_by": "operations" if tc_ms >= bytes_ms else "bytes",
+            "fp32_bound_ms": max(fp32_ms, bytes_ms)}
 
 
 def phase_sprint(reps: int = 5) -> dict:
@@ -805,6 +857,7 @@ def phase_sprint(reps: int = 5) -> dict:
                "plain_ms": _time_ms(lambda: pcor_rows_ref(x, r0, rc),
                                     reps)}
         row.update(pcor_work(rc, GENES, SAMPLES))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         torch.cuda.empty_cache()
         return row
     full_row = timed(0, GENES)
@@ -812,9 +865,12 @@ def phase_sprint(reps: int = 5) -> dict:
     strip_rows = [timed(r0, st.shape[0]) for r0, st in strips.items()]
     # each Exec run launches every strip once, then the full matrix once;
     # the library computes one run's strips (the whole matrix) in one call
-    path = _sum_path([(r, 2) for r in strip_rows] + [(full_row, 1)],
-                     "float32")
+    path = _sum_path([(r, 2) for r in strip_rows] + [(full_row, 1)], "tf32")
     path["library_ms"] = 3 * full_row["library_ms"]
+    path["bound_share"] = path["bound_ms"] / path["ms"]
+    for row in (full_row, *strip_rows, path):
+        check(row["bound_share"] <= 1.0,
+              f"pcor faster than its bound: {row}")
     res = {"phase": "sprint", "genes": GENES, "samples": SAMPLES,
            "workers": WORKERS, "load_s": load_s, "exec_s": [exec_s, exec2_s],
            "digests": digests, "launches": counts["pcor"],
@@ -880,7 +936,8 @@ def _sum_path(rows: list, dtype: str) -> dict:
     path = {"launches": 0}
     keys = [k for k in ("ms", "plain_ms", "library_ms", "sdpa_flash_ms",
                         "sdpa_default_ms", "device_ms", "library_device_ms",
-                        "bound_ms", "sfu_floor_ms", "ops", "bytes")
+                        "bound_ms", "sfu_floor_ms", "fp32_bound_ms", "flop",
+                        "ops", "bytes")
             if k in rows[0][0]]
     for key in keys:
         path[key] = 0.0

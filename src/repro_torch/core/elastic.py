@@ -262,10 +262,12 @@ class VolunteerTrainer:
         return [self.round(s) for s in range(start_step, start_step + steps)]
 
     # ---------------- crash recovery ----------------
-    def restore_latest(self, abstract_state, *, device="cpu",
+    def restore_latest(self, abstract_state, *, device=None,
                        client_hashes: Optional[set] = None) -> int:
-        """Restore state+cursor from the latest snapshot onto ``device``;
-        returns next step.  ``abstract_state`` supplies the structure (e.g.
+        """Restore state+cursor from the latest snapshot onto ``device``
+        (by default the device the trainer's current state lies on, as the
+        reference restores onto its default device); returns next step.
+        ``abstract_state`` supplies the structure (e.g.
         ``api.state_specs(cfg)``).
 
         ``client_hashes``: refs this volunteer already holds.  When given,
@@ -279,6 +281,8 @@ class VolunteerTrainer:
                                       "bytes_moved": moved,
                                       "bytes_dedup": dedup,
                                       "route": "origin"}
+        if device is None:
+            device = tu.leaves(self.state)[0].device
         state, aux = self.snapshots.restore(target_tree=abstract_state,
                                             device=device)
         self.state = state

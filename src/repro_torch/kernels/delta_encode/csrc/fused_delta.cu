@@ -1,6 +1,7 @@
 // Delta kernels for Hopper (sm_90a) over (nblk, 8, 1024) int32 tiles.
 //
-// fused_delta_tiles, the fused delta probe: flag, exclusive scan, scatter.
+// fused_delta_tiles, the fused delta probe: flag, prefix and compacted
+// write of each tile in one pass.
 // Replaces src/repro/kernels/delta_encode/kernel.py::fused_delta_tiles
 // (Pallas body _fused_kernel).  Inputs are old/new states viewed as
 // (nblk, 8, 1024) int32 tiles.  Outputs: bitmap[i] = any(old ^ new) over
@@ -11,18 +12,33 @@
 // What bounds it: bytes.  No arithmetic to speak of; the least the card
 // can move is old + new read once plus k tiles written (3N when every tile
 // changed, as under AdamW).  The TPU kernel got its order from a grid that
-// runs in sequence and an SMEM slot counter.  CUDA blocks run in no order,
-// so this design splits the work in three launches on one stream:
-//   1. flag:    one block per tile, 16-byte loads of old and new, OR of the
-//               XOR words, __syncthreads_or -> bitmap[i];
-//   2. scan:    one block computes offs = exclusive_scan(bitmap) in chunks
-//               of 1024 with a carried total (nblk is at most ~12k here);
-//   3. scatter: one block per changed tile recomputes the XOR and writes
-//               it to slot offs[i].
-// The flag pass reads 2N; the scatter pass reads the k changed tiles of
-// old and new again and writes k tiles.  That is 5N when every tile
-// changed, against the 3N minimum; a single-pass decoupled look-back
-// would reach 3N.
+// runs in sequence and an SMEM slot counter.  CUDA blocks run in no order;
+// the first port split the work into a flag pass, a one-block scan and a
+// scatter pass that read the changed tiles again (5N when every tile
+// changed).  This design is one launch with a decoupled look-back, as
+// CUB's single-pass scan does:
+//   - blocks take tile indices from an atomic ticket, so that every tile
+//     a block waits on belongs to a block that is already running;
+//   - a block reads old and new of its tile with 16-byte loads and keeps
+//     the XOR in registers (8 int4 a thread), the flag from
+//     __syncthreads_or;
+//   - it publishes the flag as the tile's aggregate, then warp 0 sums its
+//     predecessors' status words 32 at a time, from the nearest back,
+//     until it meets an inclusive prefix, and publishes its own inclusive
+//     prefix (state and count share one 32-bit word, so one store
+//     publishes both);
+//   - the block then writes its XOR tile to slot = exclusive prefix, if
+//     the tile changed, and its bitmap entry.
+// The grid is persistent (3 blocks an SM, two tiles of registers a
+// thread): a block takes its next ticket and issues that tile's loads
+// before it looks back for the current one, so the look-back's waits on
+// L2 overlap the next reads.  On an H100, one block per tile with no such
+// overlap was slower, and so were more blocks an SM at fewer registers
+// and several tiles a block (exploration; the variants are not kept).
+// So it reads 2N and writes k tiles: 3N when every tile changed.  The
+// scratch (ticket and one status word per tile) comes from the caller and
+// is zeroed by one cudaMemsetAsync on the caller's stream before each
+// launch, so no launch reads a previous one's status.
 //
 // The one-shot delta API's three kernels, each one pass with 16-byte
 // loads, bounded by bytes like the probe (the first two one block per
@@ -45,9 +61,11 @@
 // (chip_smoke.py's delta_ops phase times it beside torch.bitwise_xor).
 //
 // Plain C interface for ctypes; each entry point returns
-// cudaGetLastError() after its launches.  Launches on the caller's
-// stream, allocates nothing.
+// cudaGetLastError() after its launches (fused_delta_tiles: or the error
+// of its memset).  Launches on the caller's stream, allocates nothing.
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -55,7 +73,15 @@ namespace {
 constexpr int kTileInts = 8 * 1024;
 constexpr int kTileVecs = kTileInts / 4;   // int4 per tile: 2048
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
+constexpr int kVecsPerThread = kTileVecs / kThreads;      // 8
+// a tile's status word: the state in the top two bits, a count below
+constexpr unsigned kAggregate = 1u << 30;   // the tile's own flag
+constexpr unsigned kPrefix = 2u << 30;      // changed tiles up to and
+                                            // including this one
+constexpr unsigned kCountMask = kAggregate - 1;
+// two tiles of registers a thread (the current and the next) leave room
+// for 3 blocks of the probe on an SM
+constexpr int kFusedBlocksPerSM = 3;
 constexpr int kApplyThreads = 128;
 constexpr int kApplyUnroll = 2;
 constexpr int kApplyStep = kApplyThreads * kApplyUnroll;   // int4 per block
@@ -76,56 +102,100 @@ flag_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
   if (threadIdx.x == 0) bitmap[blockIdx.x] = any ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-exclusive_scan(const int* __restrict__ bitmap, int* __restrict__ offs,
-               long long nblk) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (long long start = 0; start < nblk; start += kScanThreads) {
-    const long long i = start + threadIdx.x;
-    const int v = i < nblk ? bitmap[i] : 0;
-    int x = v;                                  // inclusive scan in the warp
+// the XOR of tile v of old and new, kVecsPerThread int4 a thread
+__device__ __forceinline__ void load_xor(int4 (&d)[kVecsPerThread],
+                                         const int4* __restrict__ o,
+                                         const int4* __restrict__ n,
+                                         unsigned v) {
+  const size_t base = static_cast<size_t>(v) * kTileVecs + threadIdx.x;
+  const int4* po = o + base;
+  const int4* pn = n + base;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {                            // scan of the warp totals
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, d);
-        if (lane >= d) w += y;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int excl = carry + (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-    if (i < nblk) offs[i] = excl;
-    __syncthreads();                            // every read of carry done
-    if (threadIdx.x == kScanThreads - 1) carry = excl + v;
-    __syncthreads();
+  for (int u = 0; u < kVecsPerThread; ++u) {
+    const int4 a = po[u * kThreads];
+    const int4 b = pn[u * kThreads];
+    d[u] = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
-              const int* __restrict__ bitmap, const int* __restrict__ offs,
-              int4* __restrict__ tiles) {
-  if (!bitmap[blockIdx.x]) return;
-  const size_t src = static_cast<size_t>(blockIdx.x) * kTileVecs;
-  const size_t dst = static_cast<size_t>(offs[blockIdx.x]) * kTileVecs;
+// warp 0: the changed tiles before tile v > 0, from the status words of
+// its predecessors, 32 at a time from the nearest back, until an
+// inclusive prefix is met
+__device__ __forceinline__ unsigned look_back(volatile unsigned* status,
+                                              unsigned v) {
+  const int lane = threadIdx.x;
+  unsigned excl = 0;
+  for (long long end = v; end > 0; end -= 32) {
+    const long long p = end - 32 + lane;   // lane 31 the nearest
+    unsigned w = kPrefix;                  // before tile 0: a prefix of 0
+    if (p >= 0) {
+      do {
+        w = status[p];
+      } while ((w & ~kCountMask) == 0);
+    }
+    const unsigned prefixes =
+        __ballot_sync(0xffffffffu, (w & ~kCountMask) == kPrefix);
+    // sum from the nearest prefix on (all 32 if there is none)
+    const int first = prefixes ? 31 - __clz(prefixes) : 0;
+    unsigned c = lane >= first ? (w & kCountMask) : 0u;
 #pragma unroll
-  for (int j = threadIdx.x; j < kTileVecs; j += kThreads) {
-    const int4 a = o[src + j];
-    const int4 b = n[src + j];
-    tiles[dst + j] = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+    for (int d = 16; d > 0; d >>= 1)
+      c += __shfl_xor_sync(0xffffffffu, c, d);
+    excl += c;
+    if (prefixes) break;
+  }
+  return excl;
+}
+
+// scratch[0]: the ticket; scratch[1 + v]: the status word of tile v.  A
+// persistent grid: each block takes tiles from the ticket one after the
+// other, and loads its next tile while it looks back for the current one.
+__global__ void __launch_bounds__(kThreads, kFusedBlocksPerSM)
+fused_tiles(const int4* __restrict__ o, const int4* __restrict__ n,
+            int* __restrict__ bitmap, int4* __restrict__ tiles,
+            unsigned* scratch, long long nblk) {
+  __shared__ unsigned s_next, s_slot;
+  volatile unsigned* status = scratch + 1;
+  if (threadIdx.x == 0) s_next = atomicAdd(scratch, 1u);
+  __syncthreads();
+  unsigned v = s_next;
+  if (v >= nblk) return;
+  int4 d[kVecsPerThread], e[kVecsPerThread];
+  load_xor(d, o, n, v);
+  while (true) {
+    int acc = 0;
+#pragma unroll
+    for (int u = 0; u < kVecsPerThread; ++u)
+      acc |= d[u].x | d[u].y | d[u].z | d[u].w;
+    const unsigned flag = __syncthreads_or(acc != 0) ? 1u : 0u;
+    if (threadIdx.x == 0) {
+      // publish the aggregate (tile 0: its prefix), then take the next
+      // tile: a tile is only ever waited on once its aggregate is out
+      status[v] = (v == 0 ? kPrefix : kAggregate) | flag;
+      s_next = atomicAdd(scratch, 1u);
+    }
+    __syncthreads();
+    const unsigned vn = s_next;
+    if (vn < nblk) load_xor(e, o, n, vn);  // in flight during the look-back
+    if (threadIdx.x < 32) {
+      const unsigned excl = v == 0 ? 0u : look_back(status, v);
+      if (threadIdx.x == 0) {
+        if (v > 0) status[v] = kPrefix | (excl + flag);
+        s_slot = excl;
+      }
+    }
+    __syncthreads();
+    if (flag) {
+      int4* dst =
+          tiles + static_cast<size_t>(s_slot) * kTileVecs + threadIdx.x;
+#pragma unroll
+      for (int u = 0; u < kVecsPerThread; ++u) dst[u * kThreads] = d[u];
+    }
+    if (threadIdx.x == 0) bitmap[v] = static_cast<int>(flag);
+    if (vn >= nblk) break;
+#pragma unroll
+    for (int u = 0; u < kVecsPerThread; ++u) d[u] = e[u];
+    v = vn;
   }
 }
 
@@ -167,20 +237,33 @@ xor_flat(const int4* __restrict__ o, const int4* __restrict__ d,
 
 }  // namespace
 
+// scratch: nblk + 1 words (the ticket and the tiles' status words)
 extern "C" int fused_delta_tiles(const void* o32, const void* n32,
-                                 void* bitmap, void* tiles, void* offs,
+                                 void* bitmap, void* tiles, void* scratch,
                                  long long nblk, void* stream) {
   if (nblk <= 0) return 0;
+  if (nblk > static_cast<long long>(kCountMask))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int per_sm = 0;                 // resident blocks an SM holds
+  if (per_sm == 0) {
+    const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_tiles, kThreads, 0);
+    if (occ != cudaSuccess) return static_cast<int>(occ);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int4* o = static_cast<const int4*>(o32);
-  const int4* n = static_cast<const int4*>(n32);
-  int* bm = static_cast<int*>(bitmap);
-  int* off = static_cast<int*>(offs);
-  const unsigned grid = static_cast<unsigned>(nblk);
-  flag_tiles<<<grid, kThreads, 0, s>>>(o, n, bm);
-  exclusive_scan<<<1, kScanThreads, 0, s>>>(bm, off, nblk);
-  scatter_tiles<<<grid, kThreads, 0, s>>>(o, n, bm, off,
-                                         static_cast<int4*>(tiles));
+  err = cudaMemsetAsync(scratch, 0, (nblk + 1) * sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long grid =
+      std::min(nblk, static_cast<long long>(sms) * std::max(per_sm, 1));
+  fused_tiles<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      static_cast<const int4*>(o32), static_cast<const int4*>(n32),
+      static_cast<int*>(bitmap), static_cast<int4*>(tiles),
+      static_cast<unsigned*>(scratch), nblk);
   return static_cast<int>(cudaGetLastError());
 }
 

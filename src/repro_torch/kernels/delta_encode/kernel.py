@@ -135,8 +135,9 @@ def fused_delta_tiles(o32: torch.Tensor, n32: torch.Tensor):
         return fused_tiles_ref(o32, n32)
     bitmap, tiles = _bitmap_like(o32), _tiles_like(o32)
     if o32.shape[0]:
+        # the look-back's scratch: a ticket and one status word per tile
         _launch(fused_delta_tiles, o32, n32, bitmap, tiles,
-                _bitmap_like(o32))          # the scan's offsets
+                o32.new_empty(o32.shape[0] + 1))
     return bitmap, tiles
 
 

@@ -243,6 +243,18 @@ def test_launcher_resume_is_bit_exact_on_the_card(cuda, tmp_path):
     assert a["losses"] + r["losses"] == full["losses"]
 
 
+def test_restore_latest_defaults_to_the_card(cuda):
+    """A trainer on the card restores onto the card when ``device`` is not
+    given: every later round, its probe included, stays there."""
+    from test_torch_train import _restore_without_device
+    taken, restored, nxt = _restore_without_device("cuda")
+    assert nxt == 2
+    for want, got in zip(taken, restored, strict=True):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8))
+
+
 ATTN_CASES = [
     # (B, T, S, H, K, hd, causal): tests/test_kernels.py's cases, then the
     # reduced configs' hd 16 and granite-3-2b's prefill heads
@@ -478,3 +490,66 @@ def test_pcor_matches_plain_version(cuda, g, s):
     for r0, rc in ((0, g // 2), (g // 2, g - g // 2), (g // 3, 5)):
         assert torch.equal(pcor_strip(x, r0, rc), full[r0:r0 + rc])
     assert torch.equal(full, full.T)
+
+
+# strips of the canonical-orientation design: starts inside a 128-row
+# tile (as SPRINT's 5500 lies inside tile 42), a strip across the
+# diagonal tile of its own rows, one row, the last row, the whole matrix;
+# G 300 leaves a ragged last tile of 44 rows (and 16-byte stores), G 301 a
+# width that is no multiple of 4 (word stores); S 1, 7 and 321 pad to
+# 16, 16 and 336 samples
+PCOR_STRIPS = [(172, 50), (100, 200), (5, 250), (137, 1), (128, 128),
+               (255, 2)]
+
+
+@pytest.mark.parametrize("s", [1, 7, 321])
+@pytest.mark.parametrize("g", [300, 301])
+def test_pcor_strips_equal_the_full_matrix_bit_for_bit(cuda, g, s):
+    rng = np.random.default_rng(g * 1000 + s)
+    x = torch.from_numpy(rng.standard_normal((g, s)).astype(np.float32))
+    x = x.to(cuda)
+    full = correlate(x)
+    torch.cuda.synchronize()
+    assert torch.equal(full, full.T)
+    torch.testing.assert_close(full, pcor_ref(x), rtol=1e-5, atol=1e-5)
+    if s > 1:
+        torch.testing.assert_close(full.diagonal(),
+                                   torch.ones(g, device=cuda), rtol=0,
+                                   atol=1e-5)
+    for r0, rc in PCOR_STRIPS + [(g - 1, 1), (0, g)]:
+        strip = pcor_strip(x, r0, rc)
+        assert strip.shape == (rc, g)
+        assert torch.equal(strip, full[r0:r0 + rc]), (r0, rc)
+
+
+def _tile_pair(nblk: int, pattern: str, gen: torch.Generator, cuda):
+    old = torch.randint(-2**31, 2**31 - 1, (nblk, 8, 1024),
+                        dtype=torch.int32, generator=gen).to(cuda)
+    new = old.clone()
+    if pattern == "all":
+        new ^= 1
+    elif pattern == "first_last":
+        new[0, 0, 0] ^= 1
+        new[-1, -1, -1] ^= 1
+    elif pattern == "random10":
+        new[torch.randperm(nblk, generator=gen)[:nblk // 10].to(cuda),
+            3, 5] ^= 1
+    return old, new
+
+
+@pytest.mark.parametrize("pattern", ["none", "all", "first_last",
+                                     "random10"])
+def test_fused_delta_tiles_over_many_waves_of_blocks(cuda, pattern):
+    """20,011 tiles are many waves of the look-back's blocks; the second
+    call in a row gets the first one's freed scratch back from the
+    caching allocator, whose status words the entry point zeroes."""
+    gen = torch.Generator().manual_seed(23)
+    o32, n32 = _tile_pair(20_011, pattern, gen, cuda)
+    bm_ref, tiles_ref = fused_tiles_ref(o32, n32)
+    k = int(bm_ref.sum())
+    for _ in range(2):
+        bm, tiles = fused_delta_tiles(o32, n32)
+        torch.cuda.synchronize()
+        assert torch.equal(bm, bm_ref)
+        assert torch.equal(tiles[:k], tiles_ref)
+        del bm, tiles

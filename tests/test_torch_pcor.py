@@ -22,7 +22,7 @@ import torch
 
 from repro.kernels.pcor.ops import correlate as j_correlate
 from repro.kernels.pcor.ops import pcor_strip as j_pcor_strip
-from repro_torch.kernels.pcor.kernel import pcor
+from repro_torch.kernels.pcor.kernel import TILE, n_pairs, pcor, plan
 from repro_torch.kernels.pcor.ops import correlate, pcor_strip
 from repro_torch.kernels.pcor.ref import pcor_ref
 
@@ -105,6 +105,59 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = pcor.launches
     pcor(x)                       # the CPU route launches nothing
     assert pcor.launches == before
+
+
+def _stored_by(g: int, row_start: int, row_count: int) -> np.ndarray:
+    """For each element of the strip's (row_count, G) output, the pairs of
+    ``plan`` that store it, as the kernel's epilogue stores: a pair (I, J)
+    stores the strip's rows of tile I at the columns of tile J as computed
+    and, when I < J, the strip's rows of tile J at the columns of tile I
+    transposed.  -> (count, I, J) per element, of the last pair seen."""
+    count = np.zeros((row_count, g), np.int64)
+    who = np.full((2, row_count, g), -1, np.int64)
+    rows = np.arange(row_start, row_start + row_count)
+
+    def store(row_tile, col_tile, pair):
+        sel = rows // TILE == row_tile
+        cols = slice(col_tile * TILE, min(g, (col_tile + 1) * TILE))
+        count[sel, cols] += 1
+        who[0, sel, cols], who[1, sel, cols] = pair
+
+    for pair in plan(g, row_start, row_count):
+        i, j = pair
+        store(i, j, pair)
+        if i < j:
+            store(j, i, pair)
+    return count, who
+
+
+@pytest.mark.parametrize("g,row_start,row_count", [
+    (1, 0, 1), (127, 0, 127), (129, 0, 129), (301, 0, 301),
+    (301, 172, 50),     # starts inside a tile, as SPRINT's 5500 does
+    (301, 100, 200),    # crosses the diagonal tile of its own rows
+    (301, 137, 1), (301, 300, 1), (301, 255, 2), (1001, 501, 500),
+    (1001, 0, 501),     # SPRINT's two strips, at a smaller G
+])
+def test_plan_covers_every_element_once_by_its_canonical_pair(
+        g, row_start, row_count):
+    pairs = plan(g, row_start, row_count)
+    assert len(pairs) == n_pairs(g, row_start, row_count)
+    assert len(set(pairs)) == len(pairs)
+    assert all(0 <= i <= j < -(-g // TILE) for i, j in pairs)
+    count, who = _stored_by(g, row_start, row_count)
+    assert (count == 1).all()
+    i = np.arange(row_start, row_start + row_count)[:, None]
+    j = np.arange(g)[None, :]
+    assert (who[0] == np.minimum(i, j) // TILE).all()
+    assert (who[1] == np.maximum(i, j) // TILE).all()
+
+
+def test_full_matrix_plan_is_one_triangle():
+    nt = -(-11_000 // TILE)
+    assert plan(11_000, 0, 11_000) == [(i, j) for i in range(nt)
+                                       for j in range(i, nt)]
+    assert n_pairs(11_000, 0, 5_500) + n_pairs(11_000, 5_500, 5_500) \
+        == nt * (nt + 1) // 2 + 43 * 44     # tile 42 holds rows of both
 
 
 def _exec_workunits(x: torch.Tensor):

@@ -78,6 +78,36 @@ def test_replaced_state_is_freed_without_the_cycle_collector():
         gc.enable()
 
 
+def _restore_without_device(device: str):
+    """A trainer on ``device`` snapshots at step 1 and moves on a round;
+    ``restore_latest`` without ``device`` -> (the snapshot's leaves as
+    taken, the restored leaves, the next step)."""
+    from repro_torch import tree as tu
+    from repro_torch.models import api
+    args = train.parse_args(["--device", device, "--snapshot-every", "2"])
+    cfg = train.build_arch(args.arch, args.preset)
+    tr = train.build_trainer(cfg, args).trainer
+    tr.round(0)
+    tr.round(1)                                     # snapshots step 1
+    taken = [t.clone() for t in tu.leaves(tr.state)]
+    tr.round(2)
+    nxt = tr.restore_latest(api.state_specs(cfg))
+    return taken, tu.leaves(tr.state), nxt
+
+
+def test_restore_latest_defaults_to_the_trainers_device():
+    """Without ``device`` the state comes back where the trainer's state
+    lies (here the CPU), equal to the snapshot bit for bit."""
+    taken, restored, nxt = _restore_without_device("cpu")
+    assert nxt == 2
+    assert len(restored) == len(taken)
+    for want, got in zip(taken, restored):
+        assert got.device.type == "cpu"
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8))
+
+
 @pytest.mark.parametrize("flag", [
     ["--uplink"], ["--compress-grads"], ["--replicas", "1"],
     ["--edge-caches", "1"], ["--shards", "2"], ["--rebalance"],
