@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # everything, as the check runs it
     python3 chip_smoke.py --phases build,kernel --layers 2
+    python3 chip_smoke.py --phases build,train_uplink --layers 2
     python3 chip_smoke.py --phases build,ssm_kernel,serve_ssm --ssm-layers 2
     python3 chip_smoke.py --phases build,delta_ops
     python3 chip_smoke.py --phases build,sprint
@@ -50,7 +51,26 @@ Phases, each printing one JSON line:
    losses must equal the first two's bit for bit; the newest snapshot must
    restore to the live state's exact bytes, and the kernel's launch
    counter must show the diff snapshot going through it.
-6. ``serve``: granite-3-2b at full width and all 40 layers in bf16,
+6. ``train_uplink``: the same launcher at the same width and depth with
+   ``--uplink --compress-grads`` (3 rounds of 2 units on 3 workers, no
+   snapshots): each unit's gradient is quantized to int8 on the card and
+   its image diffed there against the worker's previous one.  The probe's
+   counter must read one launch per gradient leaf for every unit after a
+   worker's first, the server must accept every unit and reject none,
+   the losses must be finite, and the server's fold of the last unit must
+   dequantize to a gradient whose hash is the quorum's.  Then one unit
+   taken apart: the card's quantized image equal to the CPU's byte for
+   byte, host ms of each step (quantize, image, probe, D2H,
+   ``chunk_records``, encode, ``push_update``, ``decode_update``), the
+   uplink bytes, and ``fused_delta_tiles`` at the unit's image shapes held
+   bit for bit against its plain version and timed beside it and its
+   bytes bound.  Last, the framework-neutral planes at 2 layers
+   (``--replicas 1 --edge-caches 1 --shards 2 --rebalance --telemetry``):
+   4 rounds with a snapshot every 2, then a ``--resume`` whose state must
+   equal the first run's live state byte for byte, both as the launcher
+   restores it and again through the edge cache, and whose losses must
+   equal an uninterrupted run's; ``events.jsonl`` must not be empty.
+7. ``serve``: granite-3-2b at full width and all 40 layers in bf16,
    (a) through ``repro_torch.launch.serve`` (8 requests of 1024 prompt
    tokens, 32 new tokens each, one batched prefill) and (b) through the
    continuous-batching ``ServingEngine`` (4 slots, 8 requests of 97 to
@@ -60,7 +80,7 @@ Phases, each printing one JSON line:
    first token must equal an isolated batch-1 prefill's, and one
    request's prefill and decode logits must match ``lm.forward_train``
    (the ``blocked_attention`` twin) over its prompt and generated tokens.
-7. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+8. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
    card, y and the final state h, in f32 (2e-4) and bf16 (2e-2 for y), on
    ``tests/test_kernels.py``'s ``SSM_CASES`` (N 4 to 16, ragged T and
    Di), on the design's edges (N 1, 5, 24 and 32; T 1; Di no multiple of
@@ -73,7 +93,7 @@ Phases, each printing one JSON line:
    every prefill shape of the serve_ssm phase, each row with its launch
    plan (lanes per channel, time chunks, CUDA kernels a call) and, where
    it chunks, the time of the same call unchunked.
-8. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+9. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
    vocab 65024) at all 64 layers in bf16 through the launcher and the
    engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
    heads, d_inner 3200, N 16) at all 32 layers through the engine, with
@@ -81,7 +101,7 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
-9. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+10. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
    ``delta_encode``, ``delta_apply``) against their plain versions, bit
    for bit, on the ``kernel`` phase's leaves and patterns; a
    ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
@@ -96,7 +116,7 @@ Phases, each printing one JSON line:
    ``delta_apply``, ``torch.bitwise_xor``, each of these two also by its
    device time alone (events around each call with the stream held busy
    ahead of them), shape by shape.
-10. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+11. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
     its size, 11,000 genes x 321 samples (Load: made with numpy from seed
     0, moved to the card), Exec: two row-strip work units through the
     port's ``VolunteerScheduler`` on two volunteers, each strip from
@@ -194,8 +214,8 @@ ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 2048 + 32
 GRANITE_HEADS = (32, 8, 64)
 SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
-PHASES = ("build", "kernel", "attn_kernel", "train", "serve", "ssm_kernel",
-          "serve_ssm", "delta_ops", "sprint")
+PHASES = ("build", "kernel", "attn_kernel", "train", "train_uplink",
+          "serve", "ssm_kernel", "serve_ssm", "delta_ops", "sprint")
 # (B, T, Di, N): tests/test_kernels.py's SSM_CASES
 SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
              (2, 128, 384, 4), (1, 33, 257, 16)]
@@ -1492,6 +1512,305 @@ def phase_train(cfg, workdir: Path) -> dict:
     return res
 
 
+# ------------------------------------------------------- train_uplink
+UPLINK_ARGS = ["--uplink", "--compress-grads", "--steps", "3", "--micro",
+               "2", "--workers", "3", "--snapshot-every", "0"]
+PLANE_FLAGS = ["--replicas", "1", "--edge-caches", "1", "--shards", "2",
+               "--rebalance"]
+
+
+def _host_peak_gb() -> float:
+    """Peak resident host memory of this process so far, in GB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _synced_ms(fn):
+    """-> (fn's result, host ms from a synchronised start to a
+    synchronised end)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _uplink_unit(trainer, reps: int = 5) -> dict:
+    """One uplink unit taken apart on the trained model's gradients of
+    batches 0 and 1 (batch 0's image is the encoder's previous round):
+    the quantizer on the card against the CPU, byte for byte; host ms of
+    quantize, image, the probe (``KERNEL_STATS`` events) and its D2H copy,
+    ``chunk_records``, ``encode`` whole, ``push_update`` and
+    ``decode_update``; then ``fused_delta_tiles`` at the unit's image
+    shapes, held bit for bit against its plain version and timed beside
+    it and its bytes bound."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.uplink import (UplinkEncoder, decode_update,
+                                         flatten_compressed, leaf_image,
+                                         push_update)
+    from repro_torch.kernels.delta_encode import ops
+    from repro_torch.kernels.delta_encode.kernel import (as_i32_tiles,
+                                                         fused_delta_tiles)
+    from repro_torch.kernels.delta_encode.ref import fused_tiles_ref
+    from repro_torch.optim import grad_compress as gc
+
+    params = trainer.state.params
+    _, g0 = trainer.grad_fn(params, trainer.stream.batch(0))
+    _, g1 = trainer.grad_fn(params, trainer.stream.batch(1))
+    comp0, _ = gc.compress(g0, gc.init_error(g0))
+    del g0
+    comp1, q_ms = _synced_ms(lambda: gc.compress(g1, gc.init_error(g1))[0])
+    res = {"quantize_ms": q_ms}
+
+    # the quantizer on the card against its CPU run, byte for byte
+    g_cpu = tu.tree_map(lambda v: v.cpu(), g1)
+    c_cpu, _ = gc.compress(g_cpu, gc.init_error(g_cpu))
+    card = flatten_compressed(comp1)
+    for key, c in flatten_compressed(c_cpu).items():
+        check(torch.equal(leaf_image(card[key]).cpu(), leaf_image(c)),
+              f"quantized image of {key}: card != CPU")
+    res["quantizer_equal_cpu"] = True
+    del g1, g_cpu, c_cpu
+
+    imgs0 = {k: leaf_image(c) for k, c in flatten_compressed(comp0).items()}
+    imgs1, res["image_ms"] = _synced_ms(
+        lambda: {k: leaf_image(c) for k, c in card.items()})
+    hosts0 = {k: v.cpu().numpy() for k, v in imgs0.items()}
+    mirror = ops.DeviceMirror()
+    for k, v in imgs0.items():
+        ops.seed_slot(mirror, k, v.view(torch.int32))
+    ops.reset_kernel_stats()
+    probes, probe_wall = _synced_ms(lambda: {
+        k: ops.changed_blocks(torch.from_numpy(hosts0[k]).view(torch.int32),
+                              v.view(torch.int32), mirror=mirror,
+                              mirror_key=k)
+        for k, v in imgs1.items()})
+    stats = ops.reset_kernel_stats()
+    cb = trainer.uplink_chunk_bytes
+    t = time.perf_counter()
+    for k, (tiles, bitmap, nbytes) in probes.items():
+        ops.chunk_records(hosts0[k], tiles, bitmap, nbytes, cb)
+    res.update({"probe_ms": stats["kernel_ms"], "d2h_ms": stats["d2h_ms"],
+                "probe_wall_ms": probe_wall,
+                "chunk_records_ms": (time.perf_counter() - t) * 1e3,
+                "d2h_bytes": stats["d2h_bytes"],
+                "changed_tiles": sum(int(b.sum()) for _, b, _ in
+                                     probes.values()),
+                "tiles": sum(int(b.size) for _, b, _ in probes.values())})
+    del probes, mirror
+
+    enc, server = UplinkEncoder(chunk_bytes=cb), ChunkStore()
+    push_update(enc.encode(comp0), server, client_id="w")
+    update, res["encode_ms"] = _synced_ms(lambda: enc.encode(comp1))
+    (moved, dedup), res["push_update_ms"] = _synced_ms(
+        lambda: push_update(update, server, client_id="w"))
+    dec, res["decode_update_ms"] = _synced_ms(
+        lambda: decode_update(server, update))
+    for k, c in dec.items():
+        check(torch.equal(leaf_image(c), imgs1[k].cpu()),
+              f"decoded image of {k} != the unit's")
+    res.update({"dense_bytes": update.dense_bytes, "moved": moved,
+                "dedup": dedup})
+    del update, dec, enc, server
+
+    # the kernel at the unit's image shapes: checked, then timed
+    shapes, ms = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    for k in imgs1:
+        o32, _ = as_i32_tiles(imgs0[k].view(torch.int32))
+        n32, _ = as_i32_tiles(imgs1[k].view(torch.int32))
+        bm, tiles = fused_delta_tiles(o32, n32)
+        bm_ref, tiles_ref = fused_tiles_ref(o32, n32)
+        changed = int(bm_ref.sum())
+        check(torch.equal(bm, bm_ref)
+              and torch.equal(tiles[:changed], tiles_ref),
+              f"fused_delta_tiles != plain at the image of {k}")
+        del bm, tiles, bm_ref, tiles_ref
+        nblk = o32.shape[0]
+        row = {"leaf": k, "tiles": nblk, "changed": changed,
+               "ms": _time_ms(lambda: fused_delta_tiles(o32, n32), reps),
+               "plain_ms": _time_ms(lambda: fused_tiles_ref(o32, n32), reps),
+               "bytes": (2 * nblk + changed) * ops.TILE_BYTES + 4 * nblk}
+        shapes.append(row)
+        for key in ms:
+            ms[key] += row[key]
+        del o32, n32
+    ms["bound_ms"] = ms["bytes"] / HBM_BYTES_PER_S * 1e3
+    ms["bound_by"] = "bytes"
+    res["kernel"] = {**ms, "shapes": shapes, "reps": reps}
+    return res
+
+
+def _planes_drive(cfg, workdir: Path) -> dict:
+    """``PLANE_FLAGS`` with ``--telemetry`` at 2 layers: 4 rounds with a
+    snapshot every 2 (the probe's counter must show the diff snapshot);
+    a fresh ``--resume``, whose state must equal the first run's live
+    state byte for byte, restored again through the edge tier
+    (``restore_latest(client_hashes=set())``: the route must name an edge
+    cache, the bytes must be the same), then one more round; its losses
+    against an uninterrupted 5-round run's, bit for bit."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.delta_encode.kernel import fused_delta_tiles
+    from repro_torch.launch import train
+    from repro_torch.models import api
+
+    outdir, tel = workdir / "planes", workdir / "telemetry"
+    res = {"layers": cfg.n_layers,
+           "free_disk_gb": shutil.disk_usage(workdir).free / 1e9}
+    seconds = {}
+    t0 = time.perf_counter()
+    flags = PLANE_FLAGS + ["--telemetry", str(tel)]
+    args_a = train.parse_args(flags + ["--steps", "4", "--snapshot-every",
+                                       "2", "--outdir", str(outdir)])
+    sess = train.build_trainer(cfg, args_a)
+    fused_delta_tiles.launches = 0
+    sum_a = train.train(sess, args_a)
+    launches, per_diff = fused_delta_tiles.launches, len(path_launches(cfg))
+    check(launches == per_diff,
+          f"planes: {launches} probe launches, expected {per_diff} for the "
+          "one diff snapshot")
+    live = tu.tree_map(lambda t: t.clone(), sess.trainer.state)
+    res["free_disk_gb_after"] = shutil.disk_usage(workdir).free / 1e9
+    del sess
+    _release()
+    seconds["run"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    args_r = train.parse_args(flags + ["--steps", "1", "--snapshot-every",
+                                       "2", "--outdir", str(outdir),
+                                       "--resume"])
+    sess = train.build_trainer(cfg, args_r)
+    check(sess.start_step == 4, f"planes: resumed at {sess.start_step}")
+    check(_state_bytes_equal(sess.trainer.state, live),
+          "planes: the resumed state != the first run's live state")
+    seconds["resume"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nxt = sess.trainer.restore_latest(api.state_specs(cfg),
+                                      client_hashes=set())
+    plan = sess.trainer.last_restore_plan
+    check(nxt == 4 and plan["route"].startswith("edge-"),
+          f"planes: restore through the edge gave {nxt}, {plan}")
+    check(_state_bytes_equal(sess.trainer.state, live),
+          "planes: the state restored through the edge != the live state")
+    del live
+    seconds["edge_restore"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sum_r = train.train(sess, args_r)
+    del sess
+    _release()
+    seconds["resumed_round"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    args_b = train.parse_args(PLANE_FLAGS + ["--steps", "5",
+                                             "--snapshot-every", "0"])
+    sess = train.build_trainer(cfg, args_b)
+    sum_b = train.train(sess, args_b)
+    del sess
+    _release()
+    seconds["uninterrupted"] = time.perf_counter() - t
+    losses = sum_a["losses"] + sum_r["losses"]
+    check(losses == sum_b["losses"],
+          f"planes: resumed losses {losses} != uninterrupted "
+          f"{sum_b['losses']}")
+    events = (tel / "events.jsonl").read_text().splitlines()
+    check(len(events) > 0, "planes: events.jsonl is empty")
+    kinds = sorted({json.loads(e)["kind"] for e in events})
+    res.update({
+        "seconds": seconds, "losses": losses, "launches": launches,
+        "restore_plan": plan, "replication": sum_a["replication"],
+        "edge": {k: v for k, v in sum_r["edge"].items() if k != "caches"},
+        "shard_plane": sum_a["shard_plane"],
+        "rebalance_splits": sum_a["rebalance_splits"],
+        "telemetry": sum_r["telemetry"], "event_kinds": kinds,
+        "snapshot_stall_ms": sum_a["snapshot_stall_ms"],
+        "tokens_per_s": [sum_a["tokens_per_s"], sum_b["tokens_per_s"]]})
+    return res
+
+
+def phase_train_uplink(cfg, planes_cfg, workdir: Path) -> dict:
+    """``repro_torch.launch.train`` with ``UPLINK_ARGS`` on ``cfg`` (the
+    main path: every count to 0 just before it, read just after), its
+    checks, one unit taken apart (``_uplink_unit``), then the planes
+    drive on ``planes_cfg``."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.core.elastic import grad_hash
+    from repro_torch.kernels.delta_encode import ops
+    from repro_torch.kernels.delta_encode.kernel import fused_delta_tiles
+    from repro_torch.launch import train
+    from repro_torch.optim import grad_compress as gc
+
+    res = {"phase": "train_uplink", "arch": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "args": UPLINK_ARGS}
+    args = train.parse_args(UPLINK_ARGS)
+    res["host_rss_gb_before"] = _host_peak_gb()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: every count to 0 just before, read just after
+    fused_delta_tiles.launches = 0
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    sess = train.build_trainer(cfg, args)
+    summary = train.train(sess, args)
+    launches = fused_delta_tiles.launches
+    stats = ops.reset_kernel_stats()
+    res["main_path_s"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = _peak_gb()
+    res["peak_host_rss_gb"] = _host_peak_gb()
+
+    tr = sess.trainer
+    encs = tr._uplink_enc.values()
+    units = sum(e.units for e in encs)
+    diffed = sum(e.units - 1 for e in encs)     # after each worker's first
+    n_leaves = len(tu.leaves(tr.state.params))
+    check(diffed > 0 and launches == n_leaves * diffed
+          and sum(e.diffs for e in encs) == launches,
+          f"fused_delta_tiles launched {launches} times, expected "
+          f"{n_leaves} for each of {diffed} units after a worker's first")
+    up = summary["uplink"]
+    check(units == args.steps * args.micro and up["accepted"] == units
+          and up["rejected"] == 0,
+          f"uplink accepted {up['accepted']}, rejected {up['rejected']} "
+          f"of {units} units")
+    check(all(math.isfinite(x) for x in summary["losses"]),
+          f"losses {summary['losses']}")
+    check(abs(summary["losses"][0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first loss {summary['losses'][0]}")
+    # the server's fold of the last unit: the quorum's gradient
+    last = max(sess.server.projects["train"].canonical_updates)
+    dec, fold_ms = _synced_ms(
+        lambda: sess.server.resolve_round_update("train", last))
+    flat = dict(tu.flatten_with_keys(tr.state.params))
+    grads = tu.unflatten_like(tr.state.params, {
+        k: gc.decompress_leaf(dec[k], flat[k].shape) for k in flat})
+    check(grad_hash(grads) == tr.sched.units[last].canonical,
+          f"unit {last}: the server's fold != the quorum's hash")
+    del dec, grads
+    hist = tr.history
+    res.update({
+        "losses": summary["losses"], "units": units, "diffed_units": diffed,
+        "leaves": n_leaves, "launches": launches,
+        "tokens_per_s": summary["tokens_per_s"],
+        "uplink": {k: v for k, v in up.items() if k != "worker_credit"},
+        "uplink_bytes": {"dense": sum(h.uplink_dense for h in hist),
+                         "moved": sum(h.uplink_moved for h in hist),
+                         "dedup": sum(h.uplink_dedup for h in hist)},
+        "probe": {"kernel_ms": stats["kernel_ms"], "d2h_ms": stats["d2h_ms"],
+                  "probe_bytes": stats["probe_bytes"],
+                  "d2h_bytes": stats["d2h_bytes"]},
+        "fold_unit": last, "fold_ms": fold_ms, "fold_hash_equal": True})
+    res["unit"] = _uplink_unit(tr)
+    del tr, sess
+    _release()
+    res["planes"] = _planes_drive(planes_cfg, workdir)
+    emit(res)
+    return res
+
+
 # -------------------------------------------------------------- serve
 def _checked(fn, flag):
     """Wrap a prefill or decode step: AND the finiteness of its logits
@@ -1881,10 +2200,10 @@ def main(argv=None) -> int:
     ssm_paths = {"serve_ssm": (falcon, True), "serve_ssm_hybrid":
                  (hymba, False)}
 
-    def phase_train_in_tmp(cfg):
+    def in_tmp(phase, *a):
         workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
         try:
-            return phase_train(cfg, workdir)
+            return phase(*a, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1906,7 +2225,9 @@ def main(argv=None) -> int:
     run("build", phase_build)
     kern = run("kernel", phase_kernel, cfg)
     attn = run("attn_kernel", phase_attn_kernel, attn_paths)
-    tr = run("train", phase_train_in_tmp, cfg)
+    tr = run("train", in_tmp, phase_train, cfg)
+    up = run("train_uplink", in_tmp, phase_train_uplink, cfg,
+             granite_full_width(2))
     sv = run("serve", phase_serve, serve_cfg)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
@@ -1916,7 +2237,7 @@ def main(argv=None) -> int:
         dops = run("delta_ops", phase_delta_ops, cfg)
         sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
-    if None in (kern, dops, sprint, attn, tr, sv, ssm, sv_ssm):
+    if None in (kern, dops, sprint, attn, tr, up, sv, ssm, sv_ssm):
         return 0
     # the launches counted on each main path's run, against the launches
     # each kernel phase timed
@@ -1939,11 +2260,16 @@ def main(argv=None) -> int:
                   f"{name}: {path} launched {n} times, "
                   f"{timed[path]['launches']} timed")
 
+    # the probe's two main paths: a diff snapshot's launches (timed by the
+    # kernel phase) and the uplink's, one unit's image shapes timed per
+    # unit that diffed
+    unit = up["unit"]["kernel"]
     emit({"kernels": [
-        _kernel_row("fused_delta_tiles", SOURCE, REPLACES, tr["launches"],
-                    kern["max_abs_err"], {
-                        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-                        "bound_ms": kern["bound_ms"], "bound_by": "bytes"}),
+        _kernel_row("fused_delta_tiles", SOURCE, REPLACES,
+                    tr["launches"] + up["launches"], kern["max_abs_err"], {
+                        key: kern[key] + up["diffed_units"] * unit[key]
+                        for key in ("ms", "plain_ms", "bound_ms")}
+                    | {"bound_by": "bytes"}),
         *(_kernel_row(name, SOURCE, DELTA_REPLACES[name],
                       dops["launches"][name], dops["max_abs_err"][name],
                       dops["paths"][name]) for name in DELTA_REPLACES),

@@ -12,8 +12,10 @@ On a real fleet each worker is a pod running the same capsule; here they are
 in-process actors — the protocol (leases, quorum hashes, back-off, recovery)
 is identical.
 
-The delta uplink, gradient compression, replica sets, edge caches and the
-project server come with the port's uplink slice; asking for them raises.
+A unit's gradients stay on the device they were computed on: in uplink
+mode they are quantized there, and the quantized image is diffed there
+(``core/uplink.py``); only the quorum hash and the store objects are
+host work.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from repro_torch.core import telemetry as tlm
 from repro_torch.core.control import CapsuleRuntime, Coordinator, HostSupervisor
 from repro_torch.core.scheduler import SimClock, VolunteerScheduler
 from repro_torch.core.snapshots import SnapshotManager
+from repro_torch.core.uplink import DEFAULT_UPLINK_CHUNK, UplinkEncoder
 from repro_torch.data.pipeline import Cursor, TokenStream
+from repro_torch.optim import grad_compress
 
 
 def grad_hash(tree) -> str:
@@ -58,9 +62,9 @@ class SimWorker:
 @dataclass
 class RoundStats:
     """Per-round snapshot, derived from telemetry-registry deltas: every
-    counter field below is ``after - before`` of a scheduler counter
-    bracketing the round.  The reference's replica and uplink fields come
-    with those slices."""
+    field below is ``after - before`` of a registry counter (scheduler,
+    replica or trainer scope) bracketing the round — no hand-threaded
+    per-round accumulators."""
     step: int
     loss: float
     units: int
@@ -69,13 +73,16 @@ class RoundStats:
     invalid: int
     snapshot_bytes: int = 0
     snapshot_stall_ms: float = 0.0   # trainer-visible snapshot time only
+    replicated: int = 0          # replication messages pumped this round
+    # sharded scheduler plane accounting (0 on a single scheduler)
     steals: int = 0              # work-steal batches this round
     refills: int = 0             # watermark refill batches this round
+    # delta-aware uplink accounting (0 unless uplink mode is on)
+    uplink_dense: int = 0        # int8 payload had volunteers sent it whole
+    uplink_moved: int = 0        # deduped bytes actually transferred up
+    uplink_dedup: int = 0        # bytes the server already held
     lease_expiries: int = 0      # deadline-driven lease losses this round
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not yet ported to repro_torch")
+    read_repairs: int = 0        # objects healed from peers this round
 
 
 class VolunteerTrainer:
@@ -89,26 +96,64 @@ class VolunteerTrainer:
                  compress_grads: bool = False,
                  server=None, project: Optional[str] = None,
                  uplink: bool = False,
+                 uplink_chunk_bytes: int = DEFAULT_UPLINK_CHUNK,
                  replicas=None, edge=None,
                  telemetry: Optional[tlm.Telemetry] = None):
         """grad_fn(params, batch)->(loss, grads); apply_fn(state, grads)->state.
 
-        ``compress_grads``, ``server``/``project``/``uplink``, ``replicas``
-        and ``edge`` are the reference's uplink, replication and edge
-        paths; they raise until their slice is ported."""
-        for name, on in (("compress_grads", compress_grads),
-                         ("server/project", server is not None
-                          or project is not None),
-                         ("uplink", uplink), ("replicas", replicas is not None),
-                         ("edge", edge is not None)):
-            if on:
-                raise _not_ported(name)
+        ``scheduler`` may be a single ``VolunteerScheduler`` or a
+        ``ShardedScheduler`` plane (``core/shardplane.py``) — the trainer
+        drives both through the same request/report/drain interface; with
+        a plane, each loop sweep is one quorum-validation batch and
+        ``RoundStats.steals``/``refills`` report cross-shard traffic.
+
+        ``compress_grads``: int8 + error-feedback compression of the combined
+        gradient before the optimizer — the volunteer-uplink analogue of the
+        cross-pod trick in optim/grad_compress.py (4x fewer bytes a volunteer
+        would upload; the residual is carried on the coordinator).
+
+        ``uplink``: the delta-aware upload path.  Each worker quantizes its
+        unit gradient to int8 on its device (stateless, so replicas agree
+        bitwise), diffs the quantized image against its own previous round
+        with the fused probe, and reports delta refs through
+        ``server.report_result`` — only objects the server lacks move, and
+        workers are credited by the deduped bytes they actually
+        transferred.  Requires ``server`` (a VBoincServer) + ``project``
+        (published there); the project's scheduler is used so quorum
+        validation and uplink folding share one unit table.
+
+        ``replicas``: a ``ReplicaSet`` whose primary backs the snapshot
+        store.  Snapshot/uplink writes only *enqueue* on the hot path; the
+        trainer pumps the outbox once per round, after the optimizer step
+        and snapshot complete, so peer I/O never blocks a round.
+
+        ``edge``: an ``EdgeTier`` fronting the snapshot store.
+        ``restore_latest`` routes its download through edge discovery, so
+        a re-attach wave drains from the caches instead of the primary
+        (``last_restore_plan['route']`` records who served it)."""
         self.grad_fn = grad_fn
         self.apply_fn = apply_fn
+        self.compress_grads = compress_grads
+        self._compress_err = None
         self.state = state
         self.stream = stream
         self.micro_batches = micro_batches
+        self.server = server
+        self.project = project
+        self.uplink = uplink
+        self.uplink_chunk_bytes = uplink_chunk_bytes
+        if uplink and (server is None or project is None):
+            raise ValueError("uplink mode needs server= and project=")
+        if server is not None and project is not None:
+            proj_sched = server.projects[project].scheduler
+            if scheduler is None:
+                scheduler = proj_sched
+            elif scheduler is not proj_sched:
+                raise ValueError("trainer scheduler must be the project's "
+                                 "scheduler when a server is attached")
         self.sched = scheduler or VolunteerScheduler(clock=SimClock())
+        self.replicas = replicas
+        self.edge = edge
         self.snapshots = snapshots
         self.snapshot_every = snapshot_every
         self.cursor = Cursor()
@@ -117,15 +162,26 @@ class VolunteerTrainer:
         self._rng = np.random.default_rng(seed)
         self._grad_cache: Dict[str, tuple] = {}   # result_hash -> (loss, grads)
         self._completed: Dict[int, str] = {}      # drained, not yet consumed
+        self._uplink_enc: Dict[str, UplinkEncoder] = {}   # per volunteer
+        # uplink accounting lives in the registry; RoundStats reads deltas
         self.tel = tlm.resolve(telemetry)
         scope = self.tel.scope("trainer")
-        self.tmetrics = scope.counters("folds")
+        self.tmetrics = scope.counters("uplink_dense", "uplink_moved",
+                                       "uplink_dedup", "folds")
         self.tstats = scope.view()
+        # unit -> {worker: (moved, dedup)} awaiting quorum validation
+        self._pending_credit: Dict[int, Dict[str, tuple]] = {}
         self.last_restore_plan: Optional[dict] = None
         self.history: List[RoundStats] = []
         # elastic membership: called when the fleet empties — a real
         # volunteer project keeps receiving new volunteers
         self.respawn: Optional[Callable[["VolunteerTrainer"], None]] = None
+        # fault-injection hook (ChurnSim): called after every dispatch
+        # sweep inside round(), while reports are still buffered and
+        # leases may be open — the window where a mid-round shard kill
+        # or worker loss is observable
+        self.on_sweep: Optional[Callable[["VolunteerTrainer", int],
+                                         None]] = None
 
     # ---------------- fleet management ----------------
     def add_worker(self, worker: SimWorker) -> None:
@@ -148,6 +204,9 @@ class VolunteerTrainer:
     def _execute_unit(self, worker: SimWorker, unit) -> None:
         batch = self.stream.batch(unit.payload["batch_index"])
         loss, grads = self.grad_fn(self.state.params, batch)
+        if self.uplink:
+            self._execute_unit_uplink(worker, unit, float(loss), grads)
+            return
         h = grad_hash(grads)
         if worker.rng.random() < worker.corrupt_prob:
             h = "corrupt-" + h[:16]        # wrong result; quorum rejects
@@ -155,11 +214,64 @@ class VolunteerTrainer:
             self._grad_cache[h] = (float(loss), grads)
         self.sched.report(worker.worker_id, unit.unit_id, h)
 
+    def _execute_unit_uplink(self, worker: SimWorker, unit,
+                             loss: float, grads) -> None:
+        """Report a unit as a quantized delta stream, not a bare hash.
+
+        Quantization is stateless per unit (no error feedback on the
+        worker) so replicated units agree bitwise and quorum validation
+        still works; the canonical gradient is the dequantized image the
+        server can itself reconstruct from the ingested refs.  Quantizing,
+        dequantizing and the image diff run on the gradients' device."""
+        wid = worker.worker_id
+        comp, _ = grad_compress.compress(grads, grad_compress.init_error(grads))
+        grads = grad_compress.decompress(comp, grads)
+        h = grad_hash(grads)
+        if worker.rng.random() < worker.corrupt_prob:
+            h = "corrupt-" + h[:16]        # wrong result; quorum rejects
+        else:
+            self._grad_cache[h] = (loss, grads)
+        enc = self._uplink_enc.setdefault(wid, UplinkEncoder(
+            chunk_bytes=self.uplink_chunk_bytes))
+        update = enc.encode(comp)
+        store = self.server.store
+        log0 = dict(store.uplinks.get(wid, {}))
+        self.server.report_result(self.project, wid, unit.unit_id, h,
+                                  update=update)
+        log1 = store.uplinks.get(wid, {})
+        enc.gc()        # the client store only needs the latest round
+        moved = log1.get("bytes_in", 0) - log0.get("bytes_in", 0)
+        dedup = log1.get("bytes_dedup", 0) - log0.get("bytes_dedup", 0)
+        self.tmetrics.uplink_dense.inc(update.dense_bytes)
+        self.tmetrics.uplink_moved.inc(moved)
+        self.tmetrics.uplink_dedup.inc(dedup)
+        if moved or dedup:
+            # credit settles only after quorum validates this worker's
+            # result (_settle_uplink_credit) — an always-invalid worker
+            # must not farm transfer credit by pushing valid-looking bytes
+            self._pending_credit.setdefault(unit.unit_id, {})[wid] = (
+                moved, dedup)
+
+    def _settle_uplink_credit(self, drained) -> None:
+        """Grant deferred transfer credit for quorum-validated units:
+        only workers whose result matched the canonical hash earn by the
+        deduped bytes they moved."""
+        for uid, _h in drained:
+            unit = self.sched.units.get(uid)
+            for wid, (mv, dd) in self._pending_credit.pop(uid, {}).items():
+                if unit is not None \
+                        and unit.results.get(wid) == unit.canonical:
+                    self.sched.credit_transfer(wid, mv, dd)
+
     # ---------------- one synchronous round ----------------
     def _stat_snapshot(self) -> Dict[str, dict]:
-        """Registry counters RoundStats derives its per-round deltas from."""
-        return {"sched": dict(self.sched.stats),
+        """Registry counters RoundStats derives its per-round deltas from:
+        scheduler (or plane aggregate), replica set, trainer scope."""
+        snap = {"sched": dict(self.sched.stats),
                 "trainer": dict(self.tstats)}
+        if self.replicas is not None:
+            snap["replica"] = dict(self.replicas.rstats)
+        return snap
 
     @staticmethod
     def _delta(before: Dict[str, dict], after: Dict[str, dict],
@@ -192,6 +304,8 @@ class VolunteerTrainer:
                     self.kill_worker(w.worker_id)   # dies holding the lease
                     continue
                 self._execute_unit(w, unit)
+            if self.on_sweep is not None:
+                self.on_sweep(self, step)
             if not progressed:
                 # everyone is backing off or leases are pending: advance the
                 # simulated clock past back-off windows and lease deadlines
@@ -209,7 +323,9 @@ class VolunteerTrainer:
 
         # combine validated canonical results — drain only the units that
         # completed since last round
-        self._completed.update(self.sched.drain_completed())
+        drained = self.sched.drain_completed()
+        self._settle_uplink_credit(drained)
+        self._completed.update(drained)
         round_units = sorted(uid for uid in self._completed
                              if uid // self.micro_batches == step)
         losses, grads = [], None
@@ -222,6 +338,12 @@ class VolunteerTrainer:
             grads = g if grads is None else tu.tree_map(
                 lambda a, b: a + b, grads, g)
         grads = tu.tree_map(lambda g: g / self.micro_batches, grads)
+        if self.compress_grads:
+            if self._compress_err is None:
+                self._compress_err = grad_compress.init_error(grads)
+            comp, self._compress_err = grad_compress.compress(
+                grads, self._compress_err)
+            grads = grad_compress.decompress(comp, grads)
         self.state = self.apply_fn(self.state, grads)
         self._grad_cache.clear()
 
@@ -240,7 +362,12 @@ class VolunteerTrainer:
                 else self.snapshots.last_info
             if info is not None:
                 snapshot_bytes = info.new_bytes
+        if self.replicas is not None:
+            # fan this round's writes to the peers off the hot path
+            self.replicas.pump()
 
+        # the per-round snapshot is pure registry deltas bracketing the
+        # round — pump/read-repair/uplink all count through one mechanism
         after = self._stat_snapshot()
         d = self._delta
         stats = RoundStats(
@@ -252,6 +379,11 @@ class VolunteerTrainer:
             steals=d(before, after, "sched", "steals"),
             refills=d(before, after, "sched", "refills"),
             lease_expiries=d(before, after, "sched", "lease_expiries"),
+            replicated=d(before, after, "replica", "sent"),
+            read_repairs=d(before, after, "replica", "repaired"),
+            uplink_dense=d(before, after, "trainer", "uplink_dense"),
+            uplink_moved=d(before, after, "trainer", "uplink_moved"),
+            uplink_dedup=d(before, after, "trainer", "uplink_dedup"),
             snapshot_stall_ms=snapshot_stall_ms,
             snapshot_bytes=snapshot_bytes,
         )
@@ -260,6 +392,12 @@ class VolunteerTrainer:
 
     def run(self, steps: int, start_step: int = 0) -> List[RoundStats]:
         return [self.round(s) for s in range(start_step, start_step + steps)]
+
+    def dump_flight_recorder(self, path) -> int:
+        """Write the telemetry hub's event ring to ``path`` as JSONL.
+
+        Returns the number of events written (0 when tracing is off)."""
+        return self.tel.dump_jsonl(path)
 
     # ---------------- crash recovery ----------------
     def restore_latest(self, abstract_state, *, device=None,
@@ -273,14 +411,28 @@ class VolunteerTrainer:
         ``client_hashes``: refs this volunteer already holds.  When given,
         ``last_restore_plan`` records the block-level download accounting
         (``plan_send`` on the Wire) — only the delta objects written since
-        it detached move."""
+        it detached move.  With an ``edge`` tier attached the download
+        routes through discovery and ``last_restore_plan['route']`` names
+        the serving member."""
         if client_hashes is not None:
-            missing, moved, dedup = self.snapshots.download_plan(
-                client_hashes)
+            if self.edge is not None:
+                self.snapshots.wait()
+                sid = self.snapshots.latest()
+                if sid is None:
+                    raise ValueError("no snapshots available")
+                refs = self.snapshots.get_manifest(sid).all_refs()
+                res = self.edge.fetch(refs, client_hashes)
+                missing, moved, dedup = (res.missing, res.bytes_moved,
+                                         res.bytes_dedup)
+                route = res.route
+            else:
+                missing, moved, dedup = self.snapshots.download_plan(
+                    client_hashes)
+                route = "origin"
             self.last_restore_plan = {"missing": len(missing),
                                       "bytes_moved": moved,
                                       "bytes_dedup": dedup,
-                                      "route": "origin"}
+                                      "route": route}
         if device is None:
             device = tu.leaves(self.state)[0].device
         state, aux = self.snapshots.restore(target_tree=abstract_state,

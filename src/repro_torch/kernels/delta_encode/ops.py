@@ -17,7 +17,10 @@ returns the changed tiles (or store-chunk records) through the fused
 probe or, with ``fused=False``, through ``kernel.changed_bitmap`` and the
 plain ``gather_delta``.  Dtypes outside ``KERNEL_DTYPES`` go through the
 same kernels on a byte view (``_byte_tiles``, the same bits the
-reference's numpy oracle diffs).
+reference's numpy oracle diffs).  ``tree_changed_blocks``/``diff_leaves``
+diff two trees (or dicts) of tensors through ``probe_leaves``' size
+buckets, one launch per bucket; ``seed_slot`` fills a ``changed_blocks``
+mirror slot without a diff (the uplink's first round).
 
 The tensors' device picks the route (``kernel.fused_delta_tiles``): the
 CUDA kernel on the card, its plain version on the CPU.  Both give the same
@@ -46,6 +49,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.kernels.delta_encode.kernel import (LANE, SUB, TILE,
                                                      _bitcast_back,
                                                      as_i32_tiles,
@@ -408,6 +412,77 @@ def changed_blocks(old: torch.Tensor, new: torch.Tensor, *,
     records, new_flat = chunk_records(host_old, tiles, bitmap, nbytes,
                                       chunk_bytes)
     return records, new_flat, nbytes
+
+
+def seed_slot(mirror: DeviceMirror, key, new: torch.Tensor) -> None:
+    """Install ``new`` as ``changed_blocks``' mirror slot ``key``, as its
+    fused route leaves the slot after a diff, so that the next
+    ``changed_blocks(..., mirror=mirror, mirror_key=key)`` diffs against
+    it with no copy of ``old`` to the device."""
+    n32 = _leaf_tiles(new, dtype_name(new.dtype))
+    mirror.swap(key, (n32.shape[0], new.numel() * new.element_size()),
+                _owned(n32, new))
+
+
+def tree_changed_blocks(old_tree, new_tree, *,
+                        mirror: Optional[DeviceMirror] = None,
+                        bucketed: bool = True,
+                        max_bucket_tiles: int = MAX_BUCKET_TILES):
+    """Bucketed diff over two trees of tensors.
+
+    -> {keystr path: (changed_tiles, bitmap, nbytes)}, numpy on the host,
+    keyed by the same paths snapshot manifests use.  Leaves are grouped
+    into power-of-two size buckets (``plan_buckets``); each bucket's
+    leaves diff in one fused launch over their concatenated tiles, and
+    leaves above ``max_bucket_tiles`` launch alone.  With a
+    ``DeviceMirror`` each bucket (and each standalone leaf) is diffed
+    against its slot on the device when the slot matches, and the slot
+    then holds the new tiles.  ``bucketed=False``: one launch per leaf."""
+    olds = dict(tu.flatten_with_keys(old_tree))
+    news = dict(tu.flatten_with_keys(new_tree))
+    if olds.keys() != news.keys():
+        raise ValueError("old/new trees have different structures")
+    return diff_leaves(olds, news, mirror=mirror, bucketed=bucketed,
+                       max_bucket_tiles=max_bucket_tiles)
+
+
+def diff_leaves(olds: Dict[str, torch.Tensor], news: Dict[str, torch.Tensor],
+                *, mirror: Optional[DeviceMirror] = None,
+                bucketed: bool = True,
+                max_bucket_tiles: int = MAX_BUCKET_TILES):
+    """Dict-level core of ``tree_changed_blocks``: diff ``news[k]`` against
+    ``olds[k]`` per key, through ``probe_leaves``' buckets and launches.
+    A bucket whose mirror slot is missing (or without a mirror) is seeded
+    from the old leaves' tiles on the new leaves' device first, so every
+    leaf gets a diff.  Dtypes the kernel does not bitcast diff leaf by leaf
+    on byte tiles, as in ``changed_blocks``."""
+    if olds.keys() != news.keys():
+        raise ValueError("old/new leaf sets differ")
+    for key in olds:
+        _tensor_pair(olds[key], news[key])
+    if not bucketed:
+        return {k: changed_blocks(olds[k], news[k], mirror=mirror,
+                                  mirror_key=k)
+                for k in olds}
+    slots = mirror if mirror is not None else DeviceMirror()
+    metas = {key: leaf_meta(leaf) for key, leaf in news.items()}
+    out: Dict[str, Any] = {}
+    for bid, leaves in plan_buckets(metas,
+                                    max_bucket_tiles=max_bucket_tiles):
+        if bid < 0:        # -3: a standalone leaf; -2: a byte-view dtype
+            for key, _, _, _ in leaves:
+                out[key] = changed_blocks(
+                    olds[key], news[key],
+                    mirror=mirror if bid == -3 else None, mirror_key=key)
+            continue
+        layout = tuple(leaves)
+        skey = ("bucket", bid)
+        if slots.get(skey, layout) is None:
+            slots.swap(skey, layout, torch.cat([
+                _leaf_tiles(olds[k].to(news[k].device), dt)
+                for k, _, _, dt in leaves]))
+        out.update(_probe_bucket(bid, leaves, news, slots))
+    return {key: out[key] for key in olds}
 
 
 def chunk_records(prev: np.ndarray, tiles: np.ndarray, bitmap: np.ndarray,

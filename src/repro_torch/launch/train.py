@@ -14,9 +14,12 @@ card it turns on deterministic algorithms (and ``CUBLAS_WORKSPACE_CONFIG``)
 and keeps TF32 off for matmul and cuDNN, so a resumed run's losses equal
 an uninterrupted run's bit for bit.
 
-``--preset full`` keeps the assigned architecture and refuses here; the
-uplink, gradient compression, replica, edge, sharded-plane and telemetry
-flags wait for later slices of the port and raise.
+``--uplink`` streams each unit's quantized gradient through the project
+server's chunk store as delta refs (the image diffed on the card);
+``--compress-grads``, ``--replicas N``, ``--edge-caches N``, ``--shards
+N`` with ``--rebalance`` and ``--telemetry DIR`` work as in the reference
+launcher.  ``--preset full`` keeps the assigned architecture and refuses
+here.
 """
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig, get_arch, reduced
+from repro_torch.core import telemetry as tlm
 from repro_torch.core.chunkstore import ChunkStore
 from repro_torch.core.elastic import SimWorker, VolunteerTrainer
 from repro_torch.core.scheduler import SimClock, VolunteerScheduler
@@ -92,23 +96,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--replication", type=int, default=1)
     ap.add_argument("--quorum", type=int, default=1)
     ap.add_argument("--shards", type=int, default=1,
-                    help="sharded scheduler plane (not yet ported: > 1 "
-                         "raises)")
+                    help="shard the scheduler plane by account-key range "
+                         "across N VolunteerScheduler shards (watermark "
+                         "refill + work stealing; dispatch stays O(1) as "
+                         "the fleet grows)")
     ap.add_argument("--rebalance", action="store_true",
-                    help="elastic shard policy (not yet ported)")
-    ap.add_argument("--watermark", type=int, default=2)
-    ap.add_argument("--refill-batch", type=int, default=8)
+                    help="elastic shard policy: after each round, split "
+                         "the hottest shard into the coldest when its "
+                         "backlog runs 2x ahead (needs --shards > 1)")
+    ap.add_argument("--watermark", type=int, default=2,
+                    help="per-volunteer pending-queue low watermark "
+                         "(sharded plane only)")
+    ap.add_argument("--refill-batch", type=int, default=8,
+                    help="leases pulled per watermark refill scan "
+                         "(sharded plane only)")
     ap.add_argument("--snapshot-every", type=int, default=10)
     ap.add_argument("--compress-grads", action="store_true",
-                    help="int8 gradient compression (not yet ported)")
+                    help="int8+error-feedback gradient compression (4x "
+                         "smaller volunteer result uploads)")
     ap.add_argument("--uplink", action="store_true",
-                    help="delta-aware upload path (not yet ported)")
+                    help="delta-aware upload path: volunteers stream "
+                         "quantized gradient deltas through the server's "
+                         "chunk store; only changed blocks move up")
     ap.add_argument("--edge-caches", type=int, default=0,
-                    help="edge delta caches (not yet ported: > 0 raises)")
-    ap.add_argument("--edge-capacity", type=int, default=1 << 28)
+                    help="edge delta caches fronting the snapshot store; "
+                         "restore_latest routes through their discovery "
+                         "service instead of the primary")
+    ap.add_argument("--edge-capacity", type=int, default=1 << 28,
+                    help="per-cache capacity in bytes (LRU by closure)")
     ap.add_argument("--replicas", type=int, default=0,
-                    help="replicated snapshot chains (not yet ported: > 0 "
-                         "raises)")
+                    help="replicate snapshot chains to N peer stores "
+                         "(async, bounded outbox); the run survives a "
+                         "primary store loss")
     ap.add_argument("--async-writer", action="store_true",
                     help="zero-stall snapshots: the round pays only the "
                          "device probe + changed-tile transfer; hashing, "
@@ -116,7 +135,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--writer-depth", type=int, default=2,
                     help="bounded queue depth for --async-writer")
     ap.add_argument("--telemetry", default=None, metavar="DIR",
-                    help="lifecycle tracing dump (not yet ported)")
+                    help="enable lifecycle tracing; writes events.jsonl "
+                         "(flight recorder), metrics.prom (Prometheus "
+                         "text exposition) and trace_summary.txt "
+                         "(trace_reduce post-mortem) into DIR at exit")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--outdir", default=None)
     ap.add_argument("--resume", action="store_true")
@@ -126,16 +148,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Refuse the flags whose modules wait for later slices of the port."""
-    for flag, on in (("--uplink", args.uplink),
-                     ("--compress-grads", args.compress_grads),
-                     ("--replicas", args.replicas > 0),
-                     ("--edge-caches", args.edge_caches > 0),
-                     ("--shards > 1", args.shards > 1),
-                     ("--rebalance", args.rebalance),
-                     ("--telemetry", args.telemetry is not None)):
-        if on:
-            raise SystemExit(f"{flag} is not yet ported to repro_torch")
+    """Refuse what the port does not run: only ``--preset full``."""
+    if args.preset == "full":
+        raise SystemExit("--preset full is TPU-scale; the port runs "
+                         "reduced presets, or a config passed to "
+                         "build_trainer")
 
 
 @dataclass
@@ -145,9 +162,13 @@ class Session:
     device: torch.device
     trainer: VolunteerTrainer
     snaps: SnapshotManager
-    store: ChunkStore
+    store: Any                      # ChunkStore, or the ReplicaSet over it
     start_step: int
     spawn: Callable[[int], None]
+    replicas: Any = None            # ReplicaSet (--replicas)
+    edge: Any = None                # EdgeTier (--edge-caches)
+    server: Any = None              # VBoincServer (--uplink)
+    tel_dir: Optional[Path] = None  # --telemetry
 
 
 def make_grad_fn(loss_fn):
@@ -181,22 +202,71 @@ def build_trainer(cfg: ArchConfig, args: argparse.Namespace) -> Session:
 
     stream = TokenStream(DataConfig(cfg.vocab_size, args.seq, args.batch,
                                     seed=args.seed))
+    # one shared clock for the scheduler AND the telemetry hub: with a
+    # fixed seed the flight-recorder stream is byte-identical across runs
     clock = SimClock()
+    tel_dir = Path(args.telemetry) if args.telemetry else None
+    if tel_dir is not None:
+        tel_dir.mkdir(parents=True, exist_ok=True)
+        tlm.set_default(tlm.Telemetry(tracing=True, clock=clock))
     root = Path(args.outdir) if args.outdir else None
     store = ChunkStore(root / "store" if root else None)
+    replicas = None
+    if args.replicas > 0:
+        from repro_torch.core.replica import ReplicaSet
+        peers = [ChunkStore(root / f"replica{i}" if root else None)
+                 for i in range(args.replicas)]
+        # the set IS the snapshot store: writes land on the primary and
+        # fan out through the bounded outbox the trainer pumps per round
+        store = replicas = ReplicaSet(store, peers)
     snaps = SnapshotManager(store, root=root / "snaps" if root else None,
                             keep_last=3, async_mode=args.async_writer,
                             writer_depth=args.writer_depth)
-    sched = VolunteerScheduler(replication=args.replication,
-                               quorum=args.quorum, deadline_s=30.0,
-                               clock=clock)
+    if args.shards > 1:
+        from repro_torch.core.shardplane import ShardedScheduler
+        sched = ShardedScheduler(shards=args.shards,
+                                 replication=args.replication,
+                                 quorum=args.quorum, deadline_s=30.0,
+                                 watermark=args.watermark,
+                                 refill_batch=args.refill_batch,
+                                 clock=clock)
+    else:
+        sched = VolunteerScheduler(replication=args.replication,
+                                   quorum=args.quorum, deadline_s=30.0,
+                                   clock=clock)
+    edge = None
+    if args.edge_caches > 0:
+        from repro_torch.core.edge import EdgeCache, EdgeTier
+        # read-only delta caches fronting the snapshot store: the
+        # trainer's restore path drains from their discovery service, and
+        # they earn scheduler transfer credit for the bytes they serve
+        edge = EdgeTier(store,
+                        [EdgeCache(f"edge-{i}",
+                                   capacity_bytes=args.edge_capacity)
+                         for i in range(args.edge_caches)],
+                        scheduler=sched)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = api.TrainState(init_tree(specs.params, gen, device=device),
                            init_tree(specs.opt, gen, device=device))
+
+    server = None
+    if args.uplink:
+        # the volunteer project server: results come back as delta refs
+        # through its chunk store instead of bare hashes
+        from repro_torch.core.capsule import CapsuleSpec
+        from repro_torch.core.server import Project, VBoincServer
+        server = VBoincServer(ChunkStore())
+        spec = CapsuleSpec(args.arch, "train_4k", run, arch_override=cfg)
+        server.publish(Project("train", spec, scheduler=sched))
+        server.register_user("launcher")
+
     trainer = VolunteerTrainer(
         grad_fn=grad_fn, apply_fn=apply_fn, state=state, stream=stream,
         micro_batches=args.micro, scheduler=sched, snapshots=snaps,
-        snapshot_every=args.snapshot_every, seed=args.seed)
+        snapshot_every=args.snapshot_every, seed=args.seed,
+        compress_grads=args.compress_grads,
+        server=server, project="train" if server else None,
+        uplink=args.uplink, replicas=replicas, edge=edge)
 
     start_step = 0
     if args.resume:
@@ -222,24 +292,36 @@ def build_trainer(cfg: ArchConfig, args: argparse.Namespace) -> Session:
     spawn(args.workers)
     # elastic membership: replacements keep arriving as volunteers churn
     trainer.respawn = lambda tr: spawn(1)
-    return Session(cfg, device, trainer, snaps, store, start_step, spawn)
+    return Session(cfg, device, trainer, snaps, store, start_step, spawn,
+                   replicas, edge, server, tel_dir)
 
 
 def train(sess: Session, args: argparse.Namespace) -> dict:
     """Run ``args.steps`` rounds from ``sess.start_step``; -> summary."""
-    trainer, snaps = sess.trainer, sess.snaps
+    trainer, snaps, sched = sess.trainer, sess.snaps, sess.trainer.sched
     t0 = time.time()
+    rebalance_splits = 0
     for s in range(sess.start_step, sess.start_step + args.steps):
         alive = sum(w.alive for w in trainer.workers.values())
         if alive < args.workers:
             sess.spawn(args.workers - alive)
         st = trainer.round(s)
+        if args.rebalance and args.shards > 1:
+            moved = sched.rebalance()
+            if moved is not None:
+                rebalance_splits += 1
+                print(f"step {s:4d} rebalance: split shard "
+                      f"{moved['split']} -> {moved['target']} "
+                      f"({moved['slots']} slots, "
+                      f"{moved['reassigned_open']} open units)")
         if s % args.log_every == 0:
+            up = (f" up {st.uplink_moved}/{st.uplink_dense}"
+                  if args.uplink else "")
             print(f"step {st.step:4d} loss {st.loss:.4f} "
                   f"units {st.units} reissued {st.reissued} "
                   f"dup {st.duplicates} invalid {st.invalid} "
                   f"snap_bytes {st.snapshot_bytes} "
-                  f"stall_ms {st.snapshot_stall_ms:.1f}")
+                  f"stall_ms {st.snapshot_stall_ms:.1f}{up}")
     snaps.close()                    # drain pending background writes
     if sess.device.type == "cuda":
         torch.cuda.synchronize(sess.device)
@@ -257,10 +339,46 @@ def train(sess: Session, args: argparse.Namespace) -> dict:
         "alive_workers": sum(w.alive for w in trainer.workers.values()),
         "snapshot_stall_ms": round(sum(h.snapshot_stall_ms for h in hist), 2),
     }
+    if args.shards > 1:
+        summary["shard_plane"] = sched.shard_report()
+        if args.rebalance:
+            summary["rebalance_splits"] = rebalance_splits
     if args.async_writer:
         summary["snapshot_writer"] = {
             k: round(v, 2) if isinstance(v, float) else v
             for k, v in snaps.writer_stats.items()}
+    if sess.replicas is not None:
+        sess.replicas.flush()        # durability: drain the outbox on exit
+        summary["replication"] = {**dict(sess.replicas.rstats),
+                                  **sess.replicas.replication_report()}
+    if sess.edge is not None:
+        summary["edge"] = {
+            **{k: int(v) for k, v in dict(sess.edge.stats).items()},
+            "caches": sess.edge.describe()}
+    if sess.server is not None:
+        log = sess.server.uplinks.get("train")
+        summary["uplink"] = {
+            "bytes_in": log.bytes_in if log else 0,
+            "bytes_dedup": log.bytes_dedup if log else 0,
+            "accepted": log.accepted if log else 0,
+            "rejected": log.rejected if log else 0,
+            "dense_bytes": sum(h.uplink_dense for h in hist),
+            "worker_credit": {w: round(i.credit, 3) for w, i in
+                              trainer.sched.workers.items()},
+        }
+    if sess.tel_dir is not None:
+        tel = tlm.get_default()
+        n_events = trainer.dump_flight_recorder(sess.tel_dir / "events.jsonl")
+        (sess.tel_dir / "metrics.prom").write_text(tel.prometheus())
+        report = tlm.trace_reduce(tel)
+        (sess.tel_dir / "trace_summary.txt").write_text(
+            report.summary() + "\n")
+        summary["telemetry"] = {
+            "dir": str(sess.tel_dir), "events": n_events,
+            "reissues": report.reissues,
+            "attribution_rate": round(report.attribution_rate, 4),
+            "anomalies": report.anomaly_kinds(),
+        }
     print(json.dumps(summary, indent=2))
     if args.outdir:
         (Path(args.outdir) / "summary.json").write_text(json.dumps(summary))
@@ -269,10 +387,6 @@ def train(sess: Session, args: argparse.Namespace) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.preset == "full":
-        raise SystemExit("--preset full is TPU-scale; the port runs "
-                         "reduced presets, or a config passed to "
-                         "build_trainer")
     check_ported(args)
     cfg = build_arch(args.arch, args.preset)
     return train(build_trainer(cfg, args), args)

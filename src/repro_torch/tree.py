@@ -11,7 +11,7 @@ order.
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 _PATH_TOKEN = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
 
@@ -31,21 +31,27 @@ def _children(x):
     return None
 
 
-def flatten_with_keys(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """-> [(keystr path, leaf)] in ``jax.tree_util`` flatten order."""
+def flatten_with_keys(tree, prefix: str = "", *,
+                      is_leaf: Optional[Callable[[Any], bool]] = None
+                      ) -> List[Tuple[str, Any]]:
+    """-> [(keystr path, leaf)] in ``jax.tree_util`` flatten order.
+    ``is_leaf``, as in ``jax.tree_util``: a node for which it returns true
+    is a leaf, not descended into (e.g. a ``Compressed`` NamedTuple)."""
     if tree is None:
         return []
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) \
+        else _children(tree)
     if kids is None:
         return [(prefix, tree)]
     out: List[Tuple[str, Any]] = []
     for suffix, child in kids:
-        out.extend(flatten_with_keys(child, prefix + suffix))
+        out.extend(flatten_with_keys(child, prefix + suffix,
+                                     is_leaf=is_leaf))
     return out
 
 
-def leaves(tree) -> list:
-    return [leaf for _, leaf in flatten_with_keys(tree)]
+def leaves(tree, *, is_leaf: Optional[Callable[[Any], bool]] = None) -> list:
+    return [leaf for _, leaf in flatten_with_keys(tree, is_leaf=is_leaf)]
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -18,7 +18,10 @@ state at 2e-4 either way; for the three one-shot delta kernels, bit for
 bit (integer XOR); for the correlation kernel, 1e-5 against its plain
 version (``tests/test_kernels.py``'s limit: float32 sums in another
 order), and bit for bit between a strip and the same rows of the full
-matrix (one fixed summation order per element).
+matrix (one fixed summation order per element); for the uplink's int8
+quantizer and its images, bit for bit against the CPU (IEEE division and
+round half to even on both), and the refs an encoder on the card writes
+equal the CPU encoder's.
 """
 from __future__ import annotations
 
@@ -553,3 +556,96 @@ def test_fused_delta_tiles_over_many_waves_of_blocks(cuda, pattern):
         assert torch.equal(bm, bm_ref)
         assert torch.equal(tiles[:k], tiles_ref)
         del bm, tiles
+
+
+def _grad_rounds(device) -> list:
+    """Three rounds of f32 gradient trees on ``device``: one leaf changes
+    everywhere, one in a single block, one never, one odd-sized in its
+    tail (numpy from a seed, so the CPU twin gets the same bits)."""
+    rng = np.random.default_rng(11)
+    r = {"dense": rng.standard_normal(300_000).astype(np.float32),
+         "sparse": rng.standard_normal(500_000).astype(np.float32),
+         "frozen": rng.standard_normal((300, 77)).astype(np.float32),
+         "odd": rng.standard_normal(40_999).astype(np.float32)}
+    rounds = [r]
+    for i in range(1, 3):
+        cur = {k: v.copy() for k, v in rounds[-1].items()}
+        cur["dense"] = rng.standard_normal(300_000).astype(np.float32)
+        cur["sparse"][1000 * i:1000 * i + 40] *= 3.0
+        cur["odd"][-5:] += 1.0
+        rounds.append(cur)
+    return [{k: torch.from_numpy(v).to(device) for k, v in g.items()}
+            for g in rounds]
+
+
+def test_quantized_image_on_the_card_equals_the_cpus(cuda):
+    """q, scale, the carried residual and the uplink image: the card's
+    bytes are the CPU's (quorum compares replicas bit for bit)."""
+    from repro_torch.core.uplink import flatten_compressed, leaf_image
+    from repro_torch.optim import grad_compress as gc
+    g = _grad_rounds("cpu")[0]
+    g["halves"] = torch.arange(-300, 212, dtype=torch.float32) / 2
+    g["tiny"] = torch.randn(700, generator=torch.Generator()
+                            .manual_seed(1)) * 1e-13
+    g["huge"] = torch.tensor([3.4e38, -3.4e38, 1e-30, 5.0] * 70)
+    gd = {k: v.cuda() for k, v in g.items()}
+    c_cpu, e_cpu = gc.compress(g, gc.init_error(g))
+    c_gpu, e_gpu = gc.compress(gd, gc.init_error(gd))
+    for key, c in flatten_compressed(c_cpu).items():
+        d = flatten_compressed(c_gpu)[key]
+        assert d.q.is_cuda
+        assert torch.equal(leaf_image(d).cpu(), leaf_image(c)), key
+    for k in g:
+        assert torch.equal(e_gpu[k].cpu().view(torch.int32),
+                           e_cpu[k].view(torch.int32)), k
+
+
+def test_uplink_diff_on_the_card_launches_fused_delta_tiles(cuda):
+    """Three rounds through an encoder on the card: one kernel launch per
+    leaf of each round after the first (4 + 4), and the same store refs
+    as the encoder on the CPU."""
+    from repro_torch.core.uplink import UplinkEncoder
+    from repro_torch.optim import grad_compress as gc
+    encs = {"cpu": UplinkEncoder(chunk_bytes=1 << 12),
+            "cuda": UplinkEncoder(chunk_bytes=1 << 12)}
+    refs = {}
+    for dev, enc in encs.items():
+        fused_delta_tiles.launches = 0
+        out = []
+        for g in _grad_rounds(dev):
+            comp, _ = gc.compress(g, gc.init_error(g))
+            out.append(enc.encode(comp).refs)
+        refs[dev] = out
+        assert enc.diffs == 8
+        if dev == "cuda":
+            assert fused_delta_tiles.launches == 8
+    assert refs["cuda"] == refs["cpu"]
+
+
+def test_uplink_launcher_on_the_card_diffs_every_leaf_in_the_kernel(cuda):
+    """``--uplink --compress-grads`` on the card: every leaf diff of every
+    worker's later units is one ``fused_delta_tiles`` launch, the server
+    accepts every unit, and it folds the last unit to the quorum's hash."""
+    from repro_torch.core.elastic import grad_hash
+    from repro_torch.launch import train
+    from repro_torch.optim import grad_compress as gc
+    args = train.parse_args(["--uplink", "--compress-grads", "--steps", "3",
+                             "--snapshot-every", "0"])
+    sess = train.build_trainer(train.build_arch(args.arch, args.preset),
+                               args)
+    fused_delta_tiles.launches = 0
+    summary = train.train(sess, args)
+    encs = sess.trainer._uplink_enc.values()
+    n_leaves = len(tu.leaves(sess.trainer.state.params))
+    diffed_units = sum(e.units - 1 for e in encs)
+    assert fused_delta_tiles.launches == sum(e.diffs for e in encs) \
+        == n_leaves * diffed_units > 0
+    assert summary["uplink"]["accepted"] == 6
+    assert summary["uplink"]["rejected"] == 0
+    last = max(sess.server.projects["train"].canonical_updates)
+    dec = sess.server.resolve_round_update("train", last)
+    params = sess.trainer.state.params
+    flat = dict(tu.flatten_with_keys(params))
+    grads = tu.unflatten_like(params, {
+        k: gc.decompress_leaf(dec[k], flat[k].shape) for k in flat})
+    assert grad_hash(grads) == sess.trainer.sched.units[last].canonical
