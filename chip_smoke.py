@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases build,kernel --layers 2
     python3 chip_smoke.py --phases build,train_uplink --layers 2
     python3 chip_smoke.py --phases build,ssm_kernel,serve_ssm --ssm-layers 2
+    python3 chip_smoke.py --phases build,train_families
+    python3 chip_smoke.py --phases build,attn_kernel,serve_moe --moe-layers 2
     python3 chip_smoke.py --phases build,delta_ops
     python3 chip_smoke.py --phases build,sprint
 
@@ -21,16 +23,17 @@ Phases, each printing one JSON line:
 3. ``kernel``: ``fused_delta_tiles`` against its plain PyTorch version, bit
    for bit, on leaves of 1 and 12,320 tiles with ragged tails, every
    kernel dtype, and no / all / first-and-last / a random 10 % of tiles
-   changed; then, at the training path's launch shapes, checked again and
-   timed with CUDA events beside the plain version and the bytes bound
-   (every tile changed: 3N), and the largest of them again with a random
-   10 % of its tiles changed, beside its own bytes (2N and the changed
-   tiles).
+   changed; then, at the launch shapes of the train phase's diff snapshot
+   (28) and of the train_families phase's (hymba-1.5b's 32), checked
+   again and timed with CUDA events beside the plain version and the
+   bytes bound (every tile changed: 3N), and the train phase's largest
+   again with a random 10 % of its tiles changed, beside its own bytes
+   (2N and the changed tiles).
 4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
-   bf16 (2e-2), and on every prefill shape of the serve and serve_ssm
-   phases in bf16, each both in the kernel's (B, H, T, hd) layout and
+   bf16 (2e-2), and on every prefill shape of the serve, serve_moe and
+   serve_ssm phases in bf16, each both in the kernel's (B, H, T, hd) layout and
    through ``ops.attend`` on the model's (B, T, H, hd) tensors, as the
    path calls it; then timed with CUDA events beside the plain version
    and ``scaled_dot_product_attention`` (the library yardstick, used
@@ -47,12 +50,13 @@ Phases, each printing one JSON line:
 5. ``train``: ``repro_torch.launch.train`` at the full width of
    granite-3-2b (d_model 2048, 32 heads, 8 KV heads, d_ff 8192, vocab
    49155) and 4 of its 40 layers: 4 rounds with a snapshot every 2, a
-   fresh ``--resume`` for 2 more, and an uninterrupted 6-round run whose
-   losses must equal the first two's bit for bit; the newest snapshot must
-   restore to the live state's exact bytes, and the kernel's launch
-   counter must show the diff snapshot going through it.
+   fresh ``--resume`` for 1 more (snapshotting it), and an uninterrupted
+   5-round run whose losses must equal the first two's bit for bit;
+   the newest snapshot must restore to the live state's exact bytes,
+   and the kernel's launch counter must show the diff snapshot going
+   through it.
 6. ``train_uplink``: the same launcher at the same width and depth with
-   ``--uplink --compress-grads`` (3 rounds of 2 units on 3 workers, no
+   ``--uplink --compress-grads`` (2 rounds of 2 units on 3 workers, no
    snapshots): each unit's gradient is quantized to int8 on the card and
    its image diffed there against the worker's previous one.  The probe's
    counter must read one launch per gradient leaf for every unit after a
@@ -66,11 +70,26 @@ Phases, each printing one JSON line:
    bit for bit against its plain version and timed beside it and its
    bytes bound.  Last, the framework-neutral planes at 2 layers
    (``--replicas 1 --edge-caches 1 --shards 2 --rebalance --telemetry``):
-   4 rounds with a snapshot every 2, then a ``--resume`` whose state must
-   equal the first run's live state byte for byte, both as the launcher
-   restores it and again through the edge cache, and whose losses must
-   equal an uninterrupted run's; ``events.jsonl`` must not be empty.
-7. ``serve``: granite-3-2b at full width and all 40 layers in bf16,
+   2 rounds with a snapshot every round, then a ``--resume`` whose state
+   must equal the first run's live state byte for byte, both as the
+   launcher restores it and again through the edge cache, and whose
+   losses (1 more round) must equal an uninterrupted 3-round run's;
+   ``events.jsonl`` must not be empty.
+7. ``train_families``: the same launcher on the other decoder-only
+   families, each at its published widths with only the depth cut:
+   hymba-1.5b (hybrid, 4 of 32 layers, 297,793,600 params, a 3.57 GB
+   state; 2 rounds with a snapshot every round, a base then a diff whose
+   probe launches, one per size bucket of the state, are counted, and
+   the newest snapshot restoring to the live state's bytes),
+   falcon-mamba-7b (SSM, 1 of 64 layers, 637,992,960 params) and
+   deepseek-moe-16b (MoE, 1 of 28 layers, 1,007,294,464 params), 2
+   rounds each without snapshots.  The SSM trains through autograd of
+   the chunked scan (the reference has no backward kernel).  Each: finite
+   losses, the first near ln V, every unit completed, none invalid or
+   reissued; then one unit taken apart (``grad_fn``, ``grad_hash``,
+   ``apply`` ms), tokens/s, peak device memory and, for the MoE, the
+   routing metrics (drop fraction, aux and z-losses) on batch 0.
+8. ``serve``: granite-3-2b at full width and all 40 layers in bf16,
    (a) through ``repro_torch.launch.serve`` (8 requests of 1024 prompt
    tokens, 32 new tokens each, one batched prefill) and (b) through the
    continuous-batching ``ServingEngine`` (4 slots, 8 requests of 97 to
@@ -80,7 +99,15 @@ Phases, each printing one JSON line:
    first token must equal an isolated batch-1 prefill's, and one
    request's prefill and decode logits must match ``lm.forward_train``
    (the ``blocked_attention`` twin) over its prompt and generated tokens.
-8. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+9. ``serve_moe``: deepseek-moe-16b (d_model 2048, 16 heads of 128, 64
+   routed experts top 6 and 2 shared, vocab 102400) at all 28 layers in
+   bf16, 16,879,568,896 params, through the launcher and the engine as
+   in ``serve``, with its checks; the logits against the twin are held
+   at a capacity factor of E / k, where no item is dropped (at the served
+   1.25 the twin, one row of prompt and generated tokens, drops the
+   latest tokens first, and a decode step drops none: that gap is
+   recorded).  The attention kernel's counter must read 28 and 224.
+10. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
    card, y and the final state h, in f32 (2e-4) and bf16 (2e-2 for y), on
    ``tests/test_kernels.py``'s ``SSM_CASES`` (N 4 to 16, ragged T and
    Di), on the design's edges (N 1, 5, 24 and 32; T 1; Di no multiple of
@@ -93,7 +120,7 @@ Phases, each printing one JSON line:
    every prefill shape of the serve_ssm phase, each row with its launch
    plan (lanes per channel, time chunks, CUDA kernels a call) and, where
    it chunks, the time of the same call unchunked.
-9. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+11. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
    vocab 65024) at all 64 layers in bf16 through the launcher and the
    engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
    heads, d_inner 3200, N 16) at all 32 layers through the engine, with
@@ -101,7 +128,7 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
-10. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+12. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
    ``delta_encode``, ``delta_apply``) against their plain versions, bit
    for bit, on the ``kernel`` phase's leaves and patterns; a
    ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
@@ -116,7 +143,7 @@ Phases, each printing one JSON line:
    ``delta_apply``, ``torch.bitwise_xor``, each of these two also by its
    device time alone (events around each call with the stream held busy
    ahead of them), shape by shape.
-11. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+13. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
     its size, 11,000 genes x 321 samples (Load: made with numpy from seed
     0, moved to the card), Exec: two row-strip work units through the
     port's ``VolunteerScheduler`` on two volunteers, each strip from
@@ -215,7 +242,14 @@ GRANITE_HEADS = (32, 8, 64)
 SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 PHASES = ("build", "kernel", "attn_kernel", "train", "train_uplink",
-          "serve", "ssm_kernel", "serve_ssm", "delta_ops", "sprint")
+          "train_families", "serve", "serve_moe", "ssm_kernel", "serve_ssm",
+          "delta_ops", "sprint")
+# train_families: (arch, layers, launcher flags), each at its published
+# widths with only the depth cut; the first (the hybrid) snapshots
+FAMILY_DRIVES = (
+    ("hymba-1.5b", 4, ("--steps", "2", "--snapshot-every", "1")),
+    ("falcon-mamba-7b", 1, ("--steps", "2", "--snapshot-every", "0")),
+    ("deepseek-moe-16b", 1, ("--steps", "2", "--snapshot-every", "0")))
 # (B, T, Di, N): tests/test_kernels.py's SSM_CASES
 SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
              (2, 128, 384, 4), (1, 33, 257, 16)]
@@ -448,7 +482,10 @@ def path_launches(cfg) -> list:
     return out
 
 
-def phase_kernel(cfg, reps: int = 5) -> dict:
+def phase_kernel(paths: dict, reps: int = 5) -> dict:
+    """``paths``: {name: cfg} of the train drives whose diff snapshot
+    launches the kernel; "train" (granite) also gives the top-level
+    numbers and the random 10 % case."""
     import torch
 
     from repro_torch.kernels.delta_encode.kernel import (
@@ -486,12 +523,11 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
             del old, o32
     torch.cuda.empty_cache()
 
-    # times at the training path's launch shapes, every tile changed (as
+    # times at the training paths' launch shapes, every tile changed (as
     # AdamW leaves the state), each distinct shape timed once
-    launches = path_launches(cfg)
-    ms = plain_ms = 0.0
-    moved = 0
-    shape_ms = {}
+    path_shapes = {name: path_launches(cfg) for name, cfg in paths.items()}
+    launches = path_shapes["train"]
+    shape_rows = {}
 
     def timed(o32, n32):
         """Check one pair against the plain version; -> (kernel ms, plain
@@ -508,20 +544,24 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
                 _time_ms(lambda: fused_tiles_ref(o32, n32), reps),
                 (2 * nblk + k) * TILE_BYTES + 4 * nblk)
 
-    for nblk in sorted(set(launches)):
-        count = launches.count(nblk)
+    for nblk in sorted({n for ls in path_shapes.values() for n in ls}):
         o32 = torch.randint(-2**31, 2**31 - 1, (nblk, 8, 1024),
                             dtype=torch.int32, device="cuda", generator=gen)
         n32 = o32 ^ 1
-        k_ms, p_ms, nbytes = timed(o32, n32)
+        shape_rows[nblk] = timed(o32, n32)
         cases += 1
-        shape_ms[nblk] = k_ms
-        ms += count * k_ms
-        plain_ms += count * p_ms
-        moved += count * nbytes
         del o32, n32
     torch.cuda.empty_cache()
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    sums = {}
+    for name, ls in path_shapes.items():
+        moved = sum(shape_rows[n][2] for n in ls)
+        sums[name] = {"launches": len(ls), "tiles": sum(ls),
+                      "ms": sum(shape_rows[n][0] for n in ls),
+                      "plain_ms": sum(shape_rows[n][1] for n in ls),
+                      "bytes": moved,
+                      "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes"}
+    train = sums["train"]
 
     # the largest launch again with a random 10 % of its tiles changed
     # (a probe between two rounds that left most tiles alone)
@@ -536,14 +576,16 @@ def phase_kernel(cfg, reps: int = 5) -> dict:
     random10 = {"tiles": nblk, "changed": int(picked.numel()), "ms": k_ms,
                 "plain_ms": p_ms, "bytes": nbytes,
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "all_changed_ms": shape_ms[nblk],
+                "all_changed_ms": shape_rows[nblk][0],
                 "all_changed_bytes": (3 * nblk) * TILE_BYTES + 4 * nblk}
     del o32, n32, picked
     torch.cuda.empty_cache()
     res = {"phase": "kernel", "name": "fused_delta_tiles", "cases": cases,
-           "tolerance": "bit for bit", "max_abs_err": max_err, "launches_per_snapshot": len(launches),
-           "snapshot_tiles": sum(launches), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+           "tolerance": "bit for bit", "max_abs_err": max_err,
+           "launches_per_snapshot": train["launches"],
+           "snapshot_tiles": train["tiles"], "ms": train["ms"],
+           "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+           "bound_by": "bytes", "bytes": train["bytes"], "paths": sums,
            "random10": random10, "reps": reps}
     emit(res)
     return res
@@ -1460,7 +1502,7 @@ def phase_train(cfg, workdir: Path) -> dict:
     del restored, sess
     _release()
 
-    args_r = train.parse_args(["--steps", "2", "--snapshot-every", "2",
+    args_r = train.parse_args(["--steps", "1", "--snapshot-every", "1",
                                "--outdir", outdir, "--resume"])
     sess = train.build_trainer(cfg, args_r)
     check(sess.start_step == 4, f"resumed at {sess.start_step}")
@@ -1474,7 +1516,7 @@ def phase_train(cfg, workdir: Path) -> dict:
     del restored, sess
     _release()
 
-    args_b = train.parse_args(["--steps", "6", "--snapshot-every", "0"])
+    args_b = train.parse_args(["--steps", "5", "--snapshot-every", "0"])
     sess = train.build_trainer(cfg, args_b)
     sum_b = train.train(sess, args_b)
     peaks["train_6_no_snapshots"] = _peak_gb()
@@ -1513,7 +1555,7 @@ def phase_train(cfg, workdir: Path) -> dict:
 
 
 # ------------------------------------------------------- train_uplink
-UPLINK_ARGS = ["--uplink", "--compress-grads", "--steps", "3", "--micro",
+UPLINK_ARGS = ["--uplink", "--compress-grads", "--steps", "2", "--micro",
                "2", "--workers", "3", "--snapshot-every", "0"]
 PLANE_FLAGS = ["--replicas", "1", "--edge-caches", "1", "--shards", "2",
                "--rebalance"]
@@ -1645,13 +1687,13 @@ def _uplink_unit(trainer, reps: int = 5) -> dict:
 
 
 def _planes_drive(cfg, workdir: Path) -> dict:
-    """``PLANE_FLAGS`` with ``--telemetry`` at 2 layers: 4 rounds with a
-    snapshot every 2 (the probe's counter must show the diff snapshot);
-    a fresh ``--resume``, whose state must equal the first run's live
-    state byte for byte, restored again through the edge tier
-    (``restore_latest(client_hashes=set())``: the route must name an edge
-    cache, the bytes must be the same), then one more round; its losses
-    against an uninterrupted 5-round run's, bit for bit."""
+    """``PLANE_FLAGS`` with ``--telemetry`` at 2 layers: 2 rounds with a
+    snapshot every round, a base then a diff (the probe's counter must
+    show the diff snapshot); a fresh ``--resume``, whose state must equal
+    the first run's live state byte for byte, restored again through the
+    edge tier (``restore_latest(client_hashes=set())``: the route must
+    name an edge cache, the bytes must be the same), then one more round;
+    its losses against an uninterrupted 3-round run's, bit for bit."""
     from repro_torch import tree as tu
     from repro_torch.kernels.delta_encode.kernel import fused_delta_tiles
     from repro_torch.launch import train
@@ -1663,8 +1705,8 @@ def _planes_drive(cfg, workdir: Path) -> dict:
     seconds = {}
     t0 = time.perf_counter()
     flags = PLANE_FLAGS + ["--telemetry", str(tel)]
-    args_a = train.parse_args(flags + ["--steps", "4", "--snapshot-every",
-                                       "2", "--outdir", str(outdir)])
+    args_a = train.parse_args(flags + ["--steps", "2", "--snapshot-every",
+                                       "1", "--outdir", str(outdir)])
     sess = train.build_trainer(cfg, args_a)
     fused_delta_tiles.launches = 0
     sum_a = train.train(sess, args_a)
@@ -1683,7 +1725,7 @@ def _planes_drive(cfg, workdir: Path) -> dict:
                                        "2", "--outdir", str(outdir),
                                        "--resume"])
     sess = train.build_trainer(cfg, args_r)
-    check(sess.start_step == 4, f"planes: resumed at {sess.start_step}")
+    check(sess.start_step == 2, f"planes: resumed at {sess.start_step}")
     check(_state_bytes_equal(sess.trainer.state, live),
           "planes: the resumed state != the first run's live state")
     seconds["resume"] = time.perf_counter() - t
@@ -1691,7 +1733,7 @@ def _planes_drive(cfg, workdir: Path) -> dict:
     nxt = sess.trainer.restore_latest(api.state_specs(cfg),
                                       client_hashes=set())
     plan = sess.trainer.last_restore_plan
-    check(nxt == 4 and plan["route"].startswith("edge-"),
+    check(nxt == 2 and plan["route"].startswith("edge-"),
           f"planes: restore through the edge gave {nxt}, {plan}")
     check(_state_bytes_equal(sess.trainer.state, live),
           "planes: the state restored through the edge != the live state")
@@ -1704,7 +1746,7 @@ def _planes_drive(cfg, workdir: Path) -> dict:
     seconds["resumed_round"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    args_b = train.parse_args(PLANE_FLAGS + ["--steps", "5",
+    args_b = train.parse_args(PLANE_FLAGS + ["--steps", "3",
                                              "--snapshot-every", "0"])
     sess = train.build_trainer(cfg, args_b)
     sum_b = train.train(sess, args_b)
@@ -1807,6 +1849,113 @@ def phase_train_uplink(cfg, planes_cfg, workdir: Path) -> dict:
     del tr, sess
     _release()
     res["planes"] = _planes_drive(planes_cfg, workdir)
+    emit(res)
+    return res
+
+
+# ----------------------------------------------------- train_families
+def _family_drive(cfg, flags: tuple) -> dict:
+    """``repro_torch.launch.train`` with ``flags`` on ``cfg`` (the main
+    path: every count to 0 just before it, read just after), then its
+    checks: finite losses, the first near ln V, every unit completed and
+    none invalid or reissued; with snapshots, a base then a diff, the
+    probe's launches those of one diff snapshot (one per size bucket of
+    the state) and the newest snapshot restoring to the live state's
+    bytes; without, no launch.  Then one unit taken apart
+    (``_round_breakdown``) and, for an MoE, the routing metrics of the
+    trained model on batch 0."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.kernels.delta_encode import ops
+    from repro_torch.kernels.delta_encode.kernel import fused_delta_tiles
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.models.lm import RunConfig
+
+    args = train.parse_args(list(flags))
+    res = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "args": list(flags)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: every count to 0 just before, read just after
+    fused_delta_tiles.launches = 0
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    sess = train.build_trainer(cfg, args)
+    state = sess.trainer.state
+    res["params"] = sum(p.numel() for p in tu.leaves(state.params))
+    res["state_gb"] = sum(x.numel() * x.element_size()
+                          for x in tu.leaves(state)) / 1e9
+    del state
+    summary = train.train(sess, args)
+    launches = fused_delta_tiles.launches
+    stats = ops.reset_kernel_stats()
+    res["main_path_s"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = _peak_gb()
+
+    losses = summary["losses"]
+    check(len(losses) == args.steps
+          and all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{cfg.name}: first loss {losses[0]} vs ln V "
+          f"{math.log(cfg.vocab_size)}")
+    units, sched = args.steps * args.micro, summary["scheduler"]
+    check(sched["completed"] == units and sched["invalid_results"] == 0
+          and sched["reissued"] == 0,
+          f"{cfg.name}: {sched} for {units} units")
+    if args.snapshot_every:
+        kinds = [sess.snaps.manifests[s].kind for s in sess.snaps.order]
+        check(kinds == ["base", "diff"], f"{cfg.name}: snapshot kinds {kinds}")
+        per_diff = len(path_launches(cfg))
+        check(launches == per_diff,
+              f"{cfg.name}: {launches} probe launches, expected {per_diff} "
+              "for the one diff snapshot")
+        info = sess.snaps.last_info
+        t = time.perf_counter()
+        restored, _ = sess.snaps.restore(target_tree=sess.trainer.state,
+                                         device=sess.device)
+        res["restore_s"] = time.perf_counter() - t
+        check(_state_bytes_equal(restored, sess.trainer.state),
+              f"{cfg.name}: restore of the diff snapshot != live state")
+        del restored
+        res["diff_snapshot"] = {
+            "kernel_ms": stats["kernel_ms"], "d2h_ms": stats["d2h_ms"],
+            "probe_bytes": stats["probe_bytes"],
+            "d2h_bytes": stats["d2h_bytes"], "plan_ms": info.plan_ms,
+            "stall_ms": info.stall_ms,
+            "bound_ms": (stats["probe_bytes"] + stats["d2h_bytes"])
+            / HBM_BYTES_PER_S * 1e3}
+    else:
+        check(launches == 0, f"{cfg.name}: {launches} probe launches "
+              "without snapshots")
+    if cfg.is_moe:
+        tokens = torch.as_tensor(sess.trainer.stream.batch(0)["tokens"],
+                                 device=sess.device)
+        with torch.no_grad():
+            _, metrics = lm.forward_train(
+                sess.trainer.state.params, cfg, tokens,
+                RunConfig(remat="none", block_kv=min(args.seq, 512)))
+        res["moe"] = {k: float(v) for k, v in metrics.items()}
+    res["round_ms"] = _round_breakdown(sess.trainer)
+    res.update({"launches": launches, "losses": losses,
+                "tokens_per_s": summary["tokens_per_s"],
+                "wall_s": summary["wall_s"],
+                "snapshot_stall_ms": summary["snapshot_stall_ms"]})
+    del sess
+    _release()
+    return res
+
+
+def phase_train_families(drives: list) -> dict:
+    """``drives``: [(cfg, launcher flags)], each through ``_family_drive``;
+    the probe's launches summed over them."""
+    res = {"phase": "train_families"}
+    for cfg, flags in drives:
+        res[cfg.name] = _family_drive(cfg, flags)
+    res["launches"] = sum(res[cfg.name]["launches"] for cfg, _ in drives)
     emit(res)
     return res
 
@@ -1994,10 +2143,8 @@ def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
     only counted (with ``later_tokens``): free-running (one flip changes
     every later token) and teacher-forced (fed the engine's tokens, each
     position on its own)."""
-    import numpy as np
     import torch
 
-    from repro_torch.models import lm
     res = {}
     check_i = ENGINE_PROMPTS.index(1024)
     agree = forced_agree = total = 0
@@ -2023,30 +2170,56 @@ def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
         res["later_tokens_agree_with_isolated"] = {
             "free_running": agree / total,
             "teacher_forced": forced_agree / total, "positions": total}
-    seq = np.concatenate([prompts[check_i],
-                          np.asarray(check_out[:-1], np.int32)])
+    prompt = prompts[check_i]
+    gap = _twin_gap(cfg, run, params, prompt, check_out, check_logits)
+    if cfg.is_moe:
+        # at the served capacity the two routes drop different items: the
+        # twin's row holds the prompt and the generated tokens and drops
+        # the latest first, a decode step (one token a row) drops none.
+        # That gap is recorded; the check runs both at a capacity factor
+        # of E / k, where an expert can take every item of a row
+        res["forward_train_at_served_capacity"] = gap
+        twin_run = dataclasses.replace(
+            run, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+        out, logits = _isolated(cfg, twin_run, params, prompt,
+                                ENGINE_NEW[check_i], ENGINE_MAX_LEN)
+        gap = _twin_gap(cfg, twin_run, params, prompt, out, logits)
+    res["forward_train_check"] = {"request": check_i, **gap,
+                                  "tolerance": forward_tol}
+    check(gap["max_abs_err"] <= forward_tol * gap["logit_scale"],
+          f"prefill/decode logits vs forward_train: max abs err "
+          f"{gap['max_abs_err']} > {forward_tol} x logit scale "
+          f"{gap['logit_scale']}")
+    return res
+
+
+def _twin_gap(cfg, run, params, prompt, out, logits) -> dict:
+    """An isolated generation's prefill and decode ``logits`` (its tokens
+    ``out``) against ``lm.forward_train`` over the prompt and the fed
+    tokens, in one call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    seq = np.concatenate([prompt, np.asarray(out[:-1], np.int32)])
     with torch.no_grad():
-        full, _ = lm.forward_train(
+        full, metrics = lm.forward_train(
             params, cfg, torch.as_tensor(seq, device="cuda")[None], run)
-    start = len(prompts[check_i]) - 1
-    want = full[0, start:start + len(check_out)].float()
-    got = check_logits.float()
+    start = len(prompt) - 1
+    want = full[0, start:start + len(out)].float()
+    got = logits.float()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    res["forward_train_check"] = {
-        "request": check_i, "positions": len(check_out),
-        "max_abs_err": err, "logit_scale": scale,
-        "rel_err": err / scale, "tolerance": forward_tol,
+    return {
+        "positions": len(out), "max_abs_err": err, "logit_scale": scale,
+        "rel_err": err / scale,
         "rms_rel_err": float((got - want).square().mean().sqrt()
                              / want.square().mean().sqrt()),
         "argmax_agree": float((got[:, :cfg.vocab_size].argmax(-1)
                                == want[:, :cfg.vocab_size].argmax(-1))
-                              .float().mean())}
-    check(err <= forward_tol * scale,
-          f"prefill/decode logits vs forward_train: max abs err {err} "
-          f"> {forward_tol} x logit scale {scale}")
-    del full
-    return res
+                              .float().mean()),
+        **({"metrics": {k: float(v) for k, v in metrics.items()}}
+           if metrics else {})}
 
 
 def _serve_trace(cfg, run, params, prompt) -> dict:
@@ -2155,9 +2328,22 @@ def phase_serve_ssm(falcon, hymba, forward_tol: float = 0.1) -> dict:
     return res
 
 
-def ssm_full_width(arch: str, n_layers: int):
+def phase_serve_moe(cfg, forward_tol: float = 0.1) -> dict:
+    """deepseek-moe-16b through the launcher and the engine at full width,
+    with ``phase_serve``'s checks (first tokens against isolated
+    prefills, logits against the twin within ``forward_tol`` of their
+    scale; later tokens not counted).  Each prefill layer is one
+    attention launch; the MoE block runs no kernel of the port (the
+    reference's has none)."""
+    res = {"phase": "serve_moe",
+           cfg.name: _serve(cfg, True, forward_tol, False)}
+    emit(res)
+    return res
+
+
+def full_width(arch: str, n_layers: int):
     """The registered config, only ``n_layers`` cut (0 keeps them all):
-    ``reduced`` would also shrink d_state and dt_rank."""
+    ``reduced`` would also shrink d_state, dt_rank and the experts."""
     from repro_torch.configs.base import get_arch
     cfg = get_arch(arch)
     return dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers)
@@ -2187,16 +2373,23 @@ def main(argv=None) -> int:
     ap.add_argument("--ssm-layers", type=int, default=0,
                     help="depth of the serve_ssm phase (0: all, 64 for "
                          "falcon-mamba-7b and 32 for hymba-1.5b)")
+    ap.add_argument("--moe-layers", type=int, default=0,
+                    help="depth of the serve_moe phase (0: all 28 of "
+                         "deepseek-moe-16b)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     cfg = granite_full_width(args.layers)
     serve_cfg = granite_full_width(args.serve_layers)
-    falcon = ssm_full_width("falcon-mamba-7b", args.ssm_layers)
-    hymba = ssm_full_width("hymba-1.5b", args.ssm_layers)
+    falcon = full_width("falcon-mamba-7b", args.ssm_layers)
+    hymba = full_width("hymba-1.5b", args.ssm_layers)
+    deepseek = full_width("deepseek-moe-16b", args.moe_layers)
+    families = [(full_width(arch, n), flags)
+                for arch, n, flags in FAMILY_DRIVES]
     # the serve drives whose prefills launch each kernel: (cfg, launcher)
-    attn_paths = {"serve": (serve_cfg, True), "serve_ssm": (hymba, False)}
+    attn_paths = {"serve": (serve_cfg, True), "serve_ssm": (hymba, False),
+                  "serve_moe": (deepseek, True)}
     ssm_paths = {"serve_ssm": (falcon, True), "serve_ssm_hybrid":
                  (hymba, False)}
 
@@ -2223,12 +2416,16 @@ def main(argv=None) -> int:
 
     phase_gpu()
     run("build", phase_build)
-    kern = run("kernel", phase_kernel, cfg)
+    # the train drives whose diff snapshot launches the probe
+    kern = run("kernel", phase_kernel,
+               {"train": cfg, "train_families": families[0][0]})
     attn = run("attn_kernel", phase_attn_kernel, attn_paths)
     tr = run("train", in_tmp, phase_train, cfg)
     up = run("train_uplink", in_tmp, phase_train_uplink, cfg,
              granite_full_width(2))
+    fam = run("train_families", phase_train_families, families)
     sv = run("serve", phase_serve, serve_cfg)
+    sv_moe = run("serve_moe", phase_serve_moe, deepseek)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
     # last, as standalone users run them: outside the train launcher's
@@ -2237,17 +2434,21 @@ def main(argv=None) -> int:
         dops = run("delta_ops", phase_delta_ops, cfg)
         sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
-    if None in (kern, dops, sprint, attn, tr, up, sv, ssm, sv_ssm):
+    if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, ssm,
+                sv_ssm):
         return 0
     # the launches counted on each main path's run, against the launches
     # each kernel phase timed
-    f_name, h_name = falcon.name, hymba.name
+    f_name, h_name, d_name = falcon.name, hymba.name, deepseek.name
     runs = {
         "flash_attention": {
             "serve": sv["launcher"]["launches"]["flash_attention"]
             + sv["engine"]["launches"]["flash_attention"],
             "serve_ssm": sv_ssm[h_name]["engine"]["launches"]
-            ["flash_attention"]},
+            ["flash_attention"],
+            "serve_moe": sv_moe[d_name]["launcher"]["launches"]
+            ["flash_attention"]
+            + sv_moe[d_name]["engine"]["launches"]["flash_attention"]},
         "ssm_scan": {
             "serve_ssm": sv_ssm[f_name]["launcher"]["launches"]["ssm_scan"]
             + sv_ssm[f_name]["engine"]["launches"]["ssm_scan"],
@@ -2260,14 +2461,22 @@ def main(argv=None) -> int:
                   f"{name}: {path} launched {n} times, "
                   f"{timed[path]['launches']} timed")
 
-    # the probe's two main paths: a diff snapshot's launches (timed by the
-    # kernel phase) and the uplink's, one unit's image shapes timed per
-    # unit that diffed
+    # the probe's main paths: the diff snapshots' launches of the train
+    # and train_families drives (timed by the kernel phase) and the
+    # uplink's, one unit's image shapes timed per unit that diffed
+    snap = kern["paths"]
+    for path, n in (("train", tr["launches"]),
+                    ("train_families", fam["launches"])):
+        check(n == snap[path]["launches"],
+              f"fused_delta_tiles: {path} launched {n} times, "
+              f"{snap[path]['launches']} timed")
     unit = up["unit"]["kernel"]
     emit({"kernels": [
         _kernel_row("fused_delta_tiles", SOURCE, REPLACES,
-                    tr["launches"] + up["launches"], kern["max_abs_err"], {
-                        key: kern[key] + up["diffed_units"] * unit[key]
+                    tr["launches"] + fam["launches"] + up["launches"],
+                    kern["max_abs_err"], {
+                        key: sum(p[key] for p in snap.values())
+                        + up["diffed_units"] * unit[key]
                         for key in ("ms", "plain_ms", "bound_ms")}
                     | {"bound_by": "bytes"}),
         *(_kernel_row(name, SOURCE, DELTA_REPLACES[name],

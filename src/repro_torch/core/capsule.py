@@ -11,8 +11,8 @@ The manifest hash gives volunteers end-to-end integrity over what they run
 (the paper's trusted-application concern), and the V-BOINC *server*
 (core/server.py) distributes capsules exactly like VM images.  The
 manifest is the reference's, key for key: the run config is written in
-the reference's layout (its MoE and mesh knobs at their defaults, dtypes
-by their numpy names), so a capsule published from either package is the
+the reference's layout (its mesh knobs at their defaults, dtypes by
+their numpy names), so a capsule published from either package is the
 same content-addressed object.
 """
 from __future__ import annotations
@@ -28,11 +28,13 @@ import torch
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, get_arch
 from repro_torch.core.chunkstore import sha256
 from repro_torch.kernels.delta_encode.ops import dtype_name
+from repro_torch.models import api
 from repro_torch.models.lm import RunConfig
+from repro_torch.optim import adamw
 
 # the reference's RunConfig knobs the port's lacks, at the reference's
 # defaults: they are part of the manifest and so of its hash
-REFERENCE_RUN_DEFAULTS = {"capacity_factor": 1.25, "logical_rules": None,
+REFERENCE_RUN_DEFAULTS = {"logical_rules": None,
                           "fsdp_gather_weights": False}
 
 
@@ -88,11 +90,6 @@ def boot(spec: CapsuleSpec, device, *,
 
     ``verify_hash`` rejects a tampered capsule before any compute runs —
     the volunteer-side trust check.  A ``cuda`` device needs a card."""
-    # local imports: the launcher imports the server, which imports this
-    from repro_torch.launch.train import make_grad_fn
-    from repro_torch.models import api
-    from repro_torch.optim import adamw
-
     if verify_hash is not None and verify_hash != spec.manifest_hash:
         raise PermissionError("capsule manifest hash mismatch — refusing to "
                               "boot untrusted image")
@@ -100,7 +97,7 @@ def boot(spec: CapsuleSpec, device, *,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available to boot the capsule on")
     t0 = time.time()
-    grad_fn = make_grad_fn(api.make_eval_loss(spec.arch, spec.run))
+    grad_fn = api.make_grad_fn(api.make_eval_loss(spec.arch, spec.run))
     oc = adamw.AdamWConfig()
 
     def apply_fn(state, grads):

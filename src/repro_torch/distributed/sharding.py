@@ -46,8 +46,9 @@ def init_tree(spec_tree, generator: torch.Generator, *, device,
             return torch.log(a.expand(s.shape).contiguous())
         fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[-1], 1)
         std = min(scale, (1.0 / max(fan_in, 1)) ** 0.5)
-        return std * torch.randn(s.shape, dtype=s.dtype, device=device,
-                                 generator=generator)
+        # scaled in place: a leaf costs one buffer of its size, not two
+        return torch.randn(s.shape, dtype=s.dtype, device=device,
+                           generator=generator).mul_(std)
     return tu.tree_map(mk, spec_tree)
 
 

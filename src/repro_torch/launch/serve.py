@@ -10,13 +10,14 @@ kernel), then decoded token by token with the KV and SSM caches:
         --arch falcon-mamba-7b --device cpu
 
 The CLI serves ``reduced(get_arch(arch))``; ``build_server`` takes any
-``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b, falcon-mamba-7b
-and hymba-1.5b at full width).  Runs on ``cuda`` unless ``--device cpu``
-is given; with no GPU and no such request it stops with an error.  On
-the card it takes the train launcher's deterministic settings.  Sampling
-at ``--temperature`` > 0 draws from a ``torch.Generator`` seeded with
-``--seed``, so its tokens differ from the reference's ``jax.random``
-draws; greedy decoding (the default) does not sample.
+``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b, falcon-mamba-7b,
+hymba-1.5b and deepseek-moe-16b at full width).  Runs on ``cuda`` unless
+``--device cpu`` is given; with no GPU and no such request it stops with
+an error.  On the card it takes the train launcher's deterministic
+settings.  Sampling at ``--temperature`` > 0 draws from a
+``torch.Generator`` seeded with ``--seed``, so its tokens differ from the
+reference's ``jax.random`` draws; greedy decoding (the default) does not
+sample.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig, get_arch, reduced
 from repro_torch.distributed.sharding import init_tree
 from repro_torch.launch.train import resolve_device
@@ -60,14 +62,23 @@ class Server:
 
 
 def build_server(cfg: ArchConfig, args: argparse.Namespace) -> Server:
-    """Params from ``--seed`` on the device, cast once to the compute
-    dtype, and the prefill and decode steps for prompts of
-    ``--prompt-len`` plus ``--gen`` new tokens."""
+    """Params from ``--seed`` on the device in the compute dtype, and the
+    prefill and decode steps for prompts of ``--prompt-len`` plus
+    ``--gen`` new tokens.
+
+    Each leaf is drawn in float32 and cast before the next is drawn (the
+    same generator and order as ``init_tree`` over the whole tree, so the
+    same numbers): the peak is the bf16 tree plus the largest float32
+    leaf, not both trees.  For deepseek-moe-16b that is 33.8 GB plus
+    (28, 64, 2048, 1408) float32 experts, 20.7 GB, where the whole float32
+    tree (67.5 GB) beside its bf16 copy would not fit in 80 GB."""
     device = resolve_device(args.device)
     run = RunConfig(remat="none", block_kv=128, ssm_chunk=32)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = cast_tree(init_tree(api.param_specs(cfg), gen, device=device),
-                       run.compute_dtype)
+    params = tu.tree_map(
+        lambda spec: cast_tree(init_tree(spec, gen, device=device),
+                               run.compute_dtype),
+        api.param_specs(cfg))
     max_len = args.prompt_len + args.gen
     return Server(cfg, device, run, params,
                   api.make_prefill_step(cfg, max_len, run),

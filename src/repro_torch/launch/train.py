@@ -19,7 +19,9 @@ server's chunk store as delta refs (the image diffed on the card);
 ``--compress-grads``, ``--replicas N``, ``--edge-caches N``, ``--shards
 N`` with ``--rebalance`` and ``--telemetry DIR`` work as in the reference
 launcher.  ``--preset full`` keeps the assigned architecture and refuses
-here.
+here.  ``--arch`` takes any decoder-only family: dense, MoE
+(deepseek-moe-16b, qwen3-moe-30b-a3b), SSM (falcon-mamba-7b) and hybrid
+(hymba-1.5b).
 """
 from __future__ import annotations
 
@@ -34,7 +36,6 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig, get_arch, reduced
 from repro_torch.core import telemetry as tlm
 from repro_torch.core.chunkstore import ChunkStore
@@ -171,19 +172,6 @@ class Session:
     tel_dir: Optional[Path] = None  # --telemetry
 
 
-def make_grad_fn(loss_fn):
-    """(params, batch) -> (loss, grads): autograd over detached leaves."""
-    def grad_fn(params, batch):
-        keys = [k for k, _ in tu.flatten_with_keys(params)]
-        leaves = [p.detach().requires_grad_(True) for p in tu.leaves(params)]
-        live = tu.unflatten_like(params, dict(zip(keys, leaves)))
-        loss = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tu.unflatten_like(params,
-                                                dict(zip(keys, grads)))
-    return grad_fn
-
-
 def build_trainer(cfg: ArchConfig, args: argparse.Namespace) -> Session:
     """Everything ``main`` runs, for any ``ArchConfig``: model, optimizer,
     data, scheduler, snapshot store and trainer, restored from the chain
@@ -194,7 +182,7 @@ def build_trainer(cfg: ArchConfig, args: argparse.Namespace) -> Session:
     specs = api.state_specs(cfg)
     oc = adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                            total_steps=max(args.steps * 2, 100))
-    grad_fn = make_grad_fn(api.make_eval_loss(cfg, run))
+    grad_fn = api.make_grad_fn(api.make_eval_loss(cfg, run))
 
     def apply_fn(state, grads):
         p, o, _ = adamw.update(oc, grads, state.opt, state.params)

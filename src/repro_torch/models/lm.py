@@ -1,5 +1,5 @@
-"""Decoder-only language model, dense, SSM and hybrid families: training
-forward, prefill, decode.
+"""Decoder-only language model, dense, MoE, SSM and hybrid families:
+training forward, prefill, decode.
 
 The layer weights stay stacked along a leading (L, ...) dim, exactly the
 reference's param tree, so snapshot keys and shapes match; the reference's
@@ -7,7 +7,8 @@ reference's param tree, so snapshot keys and shapes match; the reference's
 Caches are the reference's ``{"kv": KVCache(k, v)}`` with k and v stacked
 (L, B, S, K, hd) in bf16, and ``{"ssm": SSMCache(conv, h)}`` stacked
 (L, B, d_conv-1, Di) and (L, B, Di, N) in f32; a hybrid carries both.
-The MoE blocks come with a later slice of the port and raise here.
+An MoE block's metrics (aux and z-losses, drop fraction) come back from
+``forward_train`` as their mean over the layers, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import TensorSpec, stack_specs
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.attention import KVCache
+from repro_torch.moe.moe import moe_apply, moe_specs
 
 
 def cast_tree(tree, dtype):
@@ -40,25 +42,19 @@ def cast_tree(tree, dtype):
 @dataclass(frozen=True)
 class RunConfig:
     """Execution knobs.  ``remat`` != "none" recomputes each layer in the
-    backward pass (``torch.utils.checkpoint``).  The reference's MoE and
-    mesh knobs come with the slices that use them."""
+    backward pass (``torch.utils.checkpoint``).  The reference's mesh
+    knobs come with the slice that uses them."""
     remat: str = "full"              # none | full | dots
     block_kv: int = 1024
     ssm_chunk: int = 256
+    capacity_factor: float = 1.25
     compute_dtype: Any = torch.bfloat16
-
-
-def _require_no_moe(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.family} blocks are not yet ported "
-                                  "to repro_torch")
 
 
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ArchConfig) -> dict:
-    _require_no_moe(cfg)
     out: dict = {"ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones")}
     if cfg.family == "ssm":
         out["ssm"] = ssm.ssm_specs(cfg)
@@ -69,12 +65,14 @@ def block_specs(cfg: ArchConfig) -> dict:
         out["norm_attn"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
         out["norm_ssm"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
     out["ln2"] = TensorSpec((cfg.d_model,), ("embed",), init="ones")
-    out["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff)
+    if cfg.is_moe:
+        out["moe"] = moe_specs(cfg)
+    else:
+        out["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff)
     return out
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    _require_no_moe(cfg)
     out: dict = {}
     if cfg.family != "ssm":
         out["kv"] = attention.cache_specs(cfg, batch, max_len)
@@ -105,30 +103,34 @@ def _mix(cfg: ArchConfig, p: dict, a: torch.Tensor,
                   + layers.rms_norm(s, p["norm_ssm"], cfg.rms_eps))
 
 
-def _mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor):
+    """x + the block's feed-forward (SwiGLU or MoE) of norm(x); -> (x,
+    metrics): the MoE's, or none."""
     xn2 = layers.rms_norm(x, p["ln2"], cfg.rms_eps)
+    if cfg.is_moe:
+        y, metrics = moe_apply(p["moe"], xn2, cfg, run.capacity_factor)
+        return x + y, metrics
     m = p["mlp"]
-    return x + layers.swiglu(xn2, m["w_gate"], m["w_up"], m["w_down"])
+    return x + layers.swiglu(xn2, m["w_gate"], m["w_up"], m["w_down"]), {}
 
 
 def _block_train(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, causal: bool = True):
-    _require_no_moe(cfg)
+    """-> (x, the block's metrics)."""
     xn = layers.rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.family == "ssm":
-        return x + ssm.ssm_train(p["ssm"], xn, cfg, run.ssm_chunk)
+        return x + ssm.ssm_train(p["ssm"], xn, cfg, run.ssm_chunk), {}
     a = attention.attn_train(p["attn"], xn, cfg, positions, causal=causal)
     if cfg.family == "hybrid":
         x = x + _mix(cfg, p, a,
                      ssm.ssm_train(p["ssm"], xn, cfg, run.ssm_chunk))
     else:
         x = x + a
-    return _mlp(cfg, p, x)
+    return _ffn(cfg, run, p, x)
 
 
 def _block_decode(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
                   cache: dict, index: torch.Tensor):
-    _require_no_moe(cfg)
     new_cache = {}
     xn = layers.rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.family == "ssm":
@@ -141,7 +143,7 @@ def _block_decode(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
         x = x + _mix(cfg, p, a, s)
     else:
         x = x + a
-    return _mlp(cfg, p, x), new_cache
+    return _ffn(cfg, run, p, x)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -170,14 +172,18 @@ def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     def body(x, lp):
         return _block_train(cfg, run, lp, x, positions, causal)
 
+    per_layer = []
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
         if run.remat != "none":
-            x = checkpoint(body, x, lp, use_reentrant=False)
+            x, metrics = checkpoint(body, x, lp, use_reentrant=False)
         else:
-            x = body(x, lp)
+            x, metrics = body(x, lp)
+        per_layer.append(metrics)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed(params, cfg, x), {}
+    metrics = {k: torch.stack([m[k] for m in per_layer]).mean()
+               for k in per_layer[0]}
+    return unembed(params, cfg, x), metrics
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -189,7 +195,6 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     layer's attention is one flash-attention launch and every layer's
     selective scan one ``ssm_scan`` launch.
     """
-    _require_no_moe(cfg)
     x = embed_tokens(params, cfg, tokens, run.compute_dtype)
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
@@ -213,7 +218,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 x = x + _mix(cfg, lp, a, s)
             else:
                 x = x + a
-            x = _mlp(cfg, lp, x)
+            x, _ = _ffn(cfg, run, lp, x)
         per_layer.append(new_cache)
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     logits = unembed(params, cfg, x)[:, 0]
@@ -236,7 +241,6 @@ def decode_step(params: dict, cfg: ArchConfig, caches: dict,
     """One-token decode.  tokens: (B, 1); index: scalar current length, or
     (B,) per-sequence lengths.  Returns (logits (B, 1, Vp), caches); the
     cache tensors are updated in place and returned."""
-    _require_no_moe(cfg)
     x = embed_tokens(params, cfg, tokens, run.compute_dtype)
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     layer_params = cast_tree(params["layers"], run.compute_dtype)

@@ -437,7 +437,7 @@ def test_ssm_scan_long_carry_chain_at_the_models_decays(cuda):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "deepseek-moe-16b"])
 def test_engine_on_the_card_prefills_through_the_kernel(cuda, arch):
     from repro_torch.configs.base import get_arch, reduced
     from repro_torch.distributed.sharding import init_tree
@@ -649,3 +649,103 @@ def test_uplink_launcher_on_the_card_diffs_every_leaf_in_the_kernel(cuda):
     grads = tu.unflatten_like(params, {
         k: gc.decompress_leaf(dec[k], flat[k].shape) for k in flat})
     assert grad_hash(grads) == sess.trainer.sched.units[last].canonical
+
+
+# ------------------------------------------------------------- training
+@pytest.fixture
+def deterministic(cuda):
+    """The train launcher's settings on the card (``resolve_device``:
+    deterministic algorithms, TF32 off), put back as they were after."""
+    from repro_torch.launch.train import resolve_device
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    resolve_device("cuda")
+    yield cuda
+    torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    torch.backends.cuda.matmul.allow_tf32 = saved[2]
+    torch.backends.cudnn.allow_tf32 = saved[3]
+
+
+def _grads_of(fn, params: dict, x: torch.Tensor):
+    """fn(params, x) -> (y, metrics); -> (y, metrics, grads of
+    sum(y**2) + moe_aux + moe_zloss by params leaf, then x)."""
+    keys = [k for k, _ in tu.flatten_with_keys(params)]
+    leaves = [p.detach().requires_grad_(True) for p in tu.leaves(params)]
+    x = x.detach().requires_grad_(True)
+    y, m = fn(tu.unflatten_like(params, dict(zip(keys, leaves))), x)
+    loss = torch.sum(y.float() ** 2) + m["moe_aux"] + m["moe_zloss"]
+    grads = torch.autograd.grad(loss, leaves + [x])
+    return y.detach(), {k: v.detach() for k, v in m.items()}, \
+        dict(zip(keys + ["x"], grads))
+
+
+def test_moe_on_the_card_is_deterministic_and_matches_cpu(deterministic):
+    """``moe_apply`` forward and backward under the launcher's
+    deterministic mode at deepseek-moe-16b's routing (64 experts, 2
+    shared, top 6) and a narrow width, with drops (capacity 7 of 24
+    items an expert on average): two runs on the card bit for bit, and
+    within 2e-5 of the CPU in float32 (``tests/test_kernels.py``'s limit:
+    the same arithmetic in another order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.moe.moe import moe_apply, moe_specs
+    full = get_arch("deepseek-moe-16b")
+    cfg = dataclasses.replace(reduced(full, d_model=256),
+                              moe=dataclasses.replace(full.moe,
+                                                      d_ff_expert=96))
+    params = init_tree(moe_specs(cfg), torch.Generator().manual_seed(0),
+                       device="cpu")
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+
+    def fn(p, x):
+        return moe_apply(p, x, cfg)
+    on_card = tu.tree_map(lambda t: t.to(deterministic), params)
+    runs = [_grads_of(fn, on_card, x.to(deterministic)) for _ in range(2)]
+    cpu = _grads_of(fn, params, x)
+    assert float(cpu[1]["moe_drop_frac"]) > 0
+    for a, b in zip(tu.leaves(runs[0]), tu.leaves(runs[1]), strict=True):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    for got, want in zip(tu.leaves(runs[0]), tu.leaves(cpu), strict=True):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                   atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_train_step_on_the_card_matches_cpu(deterministic, arch):
+    """One ``make_train_step`` in float32 through the chunked scan's
+    autograd (T 21, chunk 8: a short last chunk), on the card against the
+    CPU: loss, gradient norm and the updated params within 1e-5 (relative,
+    with a floor of 1e-5 of the largest value, as
+    ``tests/test_torch_model.py``)."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    cfg = reduced(get_arch(arch))
+    specs = api.state_specs(cfg)
+    gen = torch.Generator().manual_seed(0)
+    state = api.TrainState(init_tree(specs.params, gen, device="cpu"),
+                           init_tree(specs.opt, gen, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 22), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = api.make_train_step(cfg, RunConfig(
+        remat="none", ssm_chunk=8, compute_dtype=torch.float32))
+    want, wm = step(state, batch)
+    before = ssm_scan.launches
+    got, gm = step(tu.tree_map(lambda t: t.to(deterministic), state), batch)
+    assert ssm_scan.launches == before
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[key].cpu(), wm[key], rtol=1e-5,
+                                   atol=0.0)
+    for (key, g), w in zip(tu.flatten_with_keys(got.params),
+                           tu.leaves(want.params), strict=True):
+        assert g.device.type == "cuda", key
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))

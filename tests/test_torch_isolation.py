@@ -32,6 +32,7 @@ def _modules() -> list:
 def test_port_imports_load_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.kernels.delta_encode.kernel" in mods
+    assert "repro_torch.moe.moe" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

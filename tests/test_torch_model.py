@@ -33,7 +33,6 @@ from repro.models import layers as jl
 from repro.models.lm import RunConfig as JRunConfig
 from repro_torch import convert
 from repro_torch import tree as tu
-from repro_torch.launch.train import make_grad_fn
 from repro_torch.models import api, layers
 from repro_torch.models.lm import RunConfig
 
@@ -67,7 +66,7 @@ def test_loss_and_grads_match_reference(params_and_batch, dtype, rtol,
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     tparams = convert.tree_from_numpy(flat, "cpu")
     run = RunConfig(remat="none", compute_dtype=getattr(torch, dtype))
-    tloss, tgrads = make_grad_fn(api.make_eval_loss(CFG, run))(tparams,
+    tloss, tgrads = api.make_grad_fn(api.make_eval_loss(CFG, run))(tparams,
                                                                batch)
     _close(float(tloss), float(jloss), rtol, 0.0)
     want = {k: np.asarray(v) for k, v in j_flatten(jgrads)}
@@ -83,7 +82,8 @@ def test_remat_gives_the_same_grads(params_and_batch):
     out = []
     for remat in ("none", "full"):
         run = RunConfig(remat=remat, compute_dtype=torch.float32)
-        out.append(make_grad_fn(api.make_eval_loss(CFG, run))(tparams, batch))
+        out.append(api.make_grad_fn(api.make_eval_loss(CFG, run))(tparams,
+                                                                  batch))
     assert float(out[0][0]) == float(out[1][0])
     for a, b in zip(tu.leaves(out[0][1]), tu.leaves(out[1][1])):
         assert torch.equal(a, b)

@@ -1,10 +1,12 @@
 """Port parity for the serving path: prefill, decode, engine, launcher.
 
-``reduced(granite-3-2b)`` and ``reduced(qwen2-1.5b)`` (the second has qkv
-biases and tied embeddings) with JAX ``init_tree`` params carried across
-by ``repro_torch.convert``.  The port's prefill runs the flash-attention
-kernel's plain version here; the JAX prefill runs the ``blocked_attention``
-twin.  Tolerances, relative to the largest value compared:
+``reduced(granite-3-2b)``, ``reduced(qwen2-1.5b)`` (qkv biases and tied
+embeddings), ``reduced(deepseek-moe-16b)`` and
+``reduced(qwen3-moe-30b-a3b)`` (MoE blocks: each batch row routed on its
+own, so a prompt's experts and drops are the same in a batch as alone)
+with JAX ``init_tree`` params carried across by ``repro_torch.convert``.
+The port's prefill runs the flash-attention kernel's plain version here;
+the JAX prefill runs the ``blocked_attention`` twin.  Tolerances, relative to the largest value compared:
 
 * float32 compute: 1e-5.  Both sides do the same f32 arithmetic; the two
   attentions differ only in summation order (the twin's rounding of its
@@ -42,7 +44,8 @@ from repro_torch.models import api, attention
 from repro_torch.models.lm import RunConfig
 from repro_torch.serving.engine import Request, ServingEngine
 
-ARCHS = ["granite-3-2b", "qwen2-1.5b"]
+ARCHS = ["granite-3-2b", "qwen2-1.5b", "deepseek-moe-16b",
+         "qwen3-moe-30b-a3b"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 CACHE_TOL = {"float32": 2.0 ** -7, "bfloat16": 2e-2}
 MAX = 48

@@ -31,7 +31,7 @@ from repro.models import lm as jlm
 from repro.models.lm import RunConfig as JRunConfig
 from repro_torch import convert
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import api, attention, lm, ssm
 from repro_torch.models.lm import RunConfig
 
@@ -200,15 +200,6 @@ def test_convert_carries_the_ssm_params_unchanged():
         want = flat[f"['layers']['ssm']['{name}']"]
         assert got[name].dtype == torch.float32
         np.testing.assert_array_equal(got[name].numpy(), want)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_is_refused(arch):
-    """The scan kernel has no backward (nor has the reference's)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.make_eval_loss(_cfg(arch))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.main(["--device", "cpu", "--arch", arch, "--steps", "1"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -50,6 +50,22 @@ def test_resume_is_bit_exact(tmp_path):
     assert len(manifests) == 3                          # steps 1, 3, 5
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-moe-16b"])
+def test_resume_is_bit_exact_for_the_ssm_and_moe_families(arch, tmp_path):
+    """The SSM and MoE families through the same resume: 2 rounds with a
+    snapshot every 1 (a base, then a diff), a fresh ``--resume`` for 1
+    more, against 3 uninterrupted rounds, bit for bit."""
+    out = str(tmp_path / "run")
+    common = ["--device", "cpu", "--arch", arch]
+    a = train.main(common + ["--steps", "2", "--snapshot-every", "1",
+                             "--outdir", out])
+    r = train.main(common + ["--steps", "1", "--snapshot-every", "1",
+                             "--outdir", out, "--resume"])
+    full = train.main(common + ["--steps", "3", "--snapshot-every", "0"])
+    assert a["losses"] + r["losses"] == full["losses"]
+    assert len(full["losses"]) == 3
+
+
 def test_faulty_fleet_trains_the_same_losses():
     """Workers that die holding leases or return corrupt results cost
     reissues, never a different model: quorum keeps only validated
@@ -129,11 +145,12 @@ LOSS_TOL = 5e-4
 
 
 @pytest.fixture
-def from_reference_init(monkeypatch):
+def from_reference_init(monkeypatch, request):
     """Start the port's launcher from the JAX launcher's initial state (seed
-    0, smoke granite), and record the JAX trainer's per-step losses; put
-    both packages' default telemetry hubs back afterwards (``--telemetry``
-    installs a tracing one)."""
+    0, the smoke preset of the arch passed as the fixture's parameter,
+    granite-3-2b without one), and record the JAX trainer's per-step
+    losses; put both packages' default telemetry hubs back afterwards
+    (``--telemetry`` installs a tracing one)."""
     import jax
     import numpy as np
 
@@ -147,7 +164,8 @@ def from_reference_init(monkeypatch):
     from repro_torch.core import telemetry as tlm
     from repro_torch.optim.adamw import AdamWState
 
-    specs = j_api.state_specs(j_train.build_arch("granite-3-2b", "smoke"))
+    arch = getattr(request, "param", "granite-3-2b")
+    specs = j_api.state_specs(j_train.build_arch(arch, "smoke"))
     state = j_api.TrainState(j_init_tree(specs.params, jax.random.key(0)),
                              j_init_tree(specs.opt, jax.random.key(0)))
     port = convert.state_from_numpy(
@@ -217,14 +235,22 @@ def test_flags_track_the_reference_launcher(flag, tmp_path,
             assert (tmp_path / "torch" / f).stat().st_size > 0
 
 
-def test_losses_track_the_jax_trainer(from_reference_init):
+FAMILIES = ["granite-3-2b", "falcon-mamba-7b", "hymba-1.5b",
+            "deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("from_reference_init", FAMILIES, indirect=True)
+def test_losses_track_the_jax_trainer(from_reference_init, request):
     """From identical initial params and optimizer state, 8 rounds of the
-    default launcher: every step's loss within ``LOSS_TOL`` of the JAX
-    trainer's (measured gap: at most 1.3e-4 over 12 steps), and the
-    training moves the loss by far more than that."""
+    launcher on each family's smoke preset (bf16 compute): every step's
+    loss within ``LOSS_TOL`` of the JAX trainer's (measured gaps over 8
+    steps: granite at most 1.3e-4, falcon 1.7e-4, hymba 1.3e-4, deepseek
+    1.2e-4, qwen3-moe 0.8e-4), and the training moves the loss by far
+    more than that."""
     j_train, j_losses = from_reference_init
-    j_train.main(["--steps", "8", "--snapshot-every", "0"])
-    got = train.main(["--device", "cpu", "--steps", "8",
+    arch = ["--arch", request.node.callspec.params["from_reference_init"]]
+    j_train.main(arch + ["--steps", "8", "--snapshot-every", "0"])
+    got = train.main(["--device", "cpu", *arch, "--steps", "8",
                       "--snapshot-every", "0"])["losses"]
     assert len(j_losses) == len(got) == 8
     gaps = [abs(a - b) for a, b in zip(got, j_losses)]

@@ -483,6 +483,7 @@ def test_uplink_needs_a_server_and_the_projects_scheduler():
     ("granite-3-2b", {"remat": "none", "block_kv": 64, "ssm_chunk": 64},
      True),
     ("qwen2-1.5b", {"compute_dtype": "float32"}, False),
+    ("deepseek-moe-16b", {"capacity_factor": 2.0, "remat": "none"}, True),
 ])
 def test_capsule_manifest_hash_equals_reference(arch, kw, override):
     jkw, tkw = dict(kw), dict(kw)
