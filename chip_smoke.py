@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,ssm_kernel,serve_ssm --ssm-layers 2
     python3 chip_smoke.py --phases build,train_families
     python3 chip_smoke.py --phases build,attn_kernel,serve_moe --moe-layers 2
+    python3 chip_smoke.py --phases build,attn_kernel,encdec --encdec-layers 2
     python3 chip_smoke.py --phases build,delta_ops
     python3 chip_smoke.py --phases build,sprint
 
@@ -32,16 +33,20 @@ Phases, each printing one JSON line:
 4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
-   bf16 (2e-2), and on every prefill shape of the serve, serve_moe and
-   serve_ssm phases in bf16, each both in the kernel's (B, H, T, hd) layout and
-   through ``ops.attend`` on the model's (B, T, H, hd) tensors, as the
-   path calls it; then timed with CUDA events beside the plain version
+   bf16 (2e-2), and on every prefill shape of the serve, serve_moe,
+   encdec and serve_ssm phases in bf16 (the encdec phase's causal
+   decoder self-attention and its full encoder self-attention and
+   cross-attention, plus the full T 1024 against a ragged S 1000 and
+   1500), each both in the kernel's (B, H, T, hd) layout and through
+   ``ops.attend`` on the model's (B, T, H, hd) tensors, as the path calls
+   it; then timed with CUDA events beside the plain version
    and ``scaled_dot_product_attention`` (the library yardstick, used
    nowhere in the port: pinned to its flash backend, and under its
    default dispatch, whose backend is named; the faster of the two
-   counts) at granite-3-2b's prefill shapes in the kernel's layout and at
-   every prefill shape of those phases through ``attend``, each with its
-   bound, the executed TFLOP/s of kernel and library, and the kernel's
+   counts, at the call's causality) at granite-3-2b's prefill shapes in
+   the kernel's layout and at every prefill shape of those phases
+   through ``attend`` (the encdec phase's three groups one by one), each
+   with its bound, the executed TFLOP/s of kernel and library, and the kernel's
    share of its bound.  At B 1, T 97 to 2000 and B 8, T 2048 a call of
    ``attend`` is split into the kernel's device time
    (``torch.profiler``), the host's time to issue it and its time on
@@ -107,7 +112,22 @@ Phases, each printing one JSON line:
    1.25 the twin, one row of prompt and generated tokens, drops the
    latest tokens first, and a decode step drops none: that gap is
    recorded).  The attention kernel's counter must read 28 and 224.
-10. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+10. ``encdec``: seamless-m4t-medium (the encoder-decoder: 12 + 12 layers,
+   d_model 1024, 16 heads of 64, d_ff 4096, vocab 256206) at full width,
+   977,860,608 params.  (a) A capsule booted on the card takes 2 steps at
+   B 4, T 256 with frames (4, 256, 1024) from numpy seed 0, after one
+   ``api.make_train_step`` step from the same state whose loss must
+   equal the capsule's first; the losses finite, the first within 1 of
+   ln V, the params finite after; step ms and peak memory.  (b) The serve
+   launcher in bf16 on 8 prompts of 1024 tokens with 8 x 1024 frames, 32
+   new tokens: the attention kernel's counter must read 36 (12 encoder
+   and 12 cross-attention launches, full, 12 decoder ones, causal) and
+   decode runs none.  (c) Request 0 generated alone, its prefill and
+   decode logits against ``encdec.forward_train`` (the twin) over its
+   prompt, its fed tokens and its frames, within 0.1 of the logit scale;
+   then a capsule step, and request 0's prefill and 8 decode steps,
+   each traced (``torch.profiler``).
+11. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
    card, y and the final state h, in f32 (2e-4) and bf16 (2e-2 for y), on
    ``tests/test_kernels.py``'s ``SSM_CASES`` (N 4 to 16, ragged T and
    Di), on the design's edges (N 1, 5, 24 and 32; T 1; Di no multiple of
@@ -120,7 +140,7 @@ Phases, each printing one JSON line:
    every prefill shape of the serve_ssm phase, each row with its launch
    plan (lanes per channel, time chunks, CUDA kernels a call) and, where
    it chunks, the time of the same call unchunked.
-11. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+12. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
    vocab 65024) at all 64 layers in bf16 through the launcher and the
    engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
    heads, d_inner 3200, N 16) at all 32 layers through the engine, with
@@ -128,7 +148,7 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
-12. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+13. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
    ``delta_encode``, ``delta_apply``) against their plain versions, bit
    for bit, on the ``kernel`` phase's leaves and patterns; a
    ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
@@ -143,7 +163,7 @@ Phases, each printing one JSON line:
    ``delta_apply``, ``torch.bitwise_xor``, each of these two also by its
    device time alone (events around each call with the stream held busy
    ahead of them), shape by shape.
-13. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+14. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
     its size, 11,000 genes x 321 samples (Load: made with numpy from seed
     0, moved to the card), Exec: two row-strip work units through the
     port's ``VolunteerScheduler`` on two volunteers, each strip from
@@ -242,14 +262,21 @@ GRANITE_HEADS = (32, 8, 64)
 SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 PHASES = ("build", "kernel", "attn_kernel", "train", "train_uplink",
-          "train_families", "serve", "serve_moe", "ssm_kernel", "serve_ssm",
-          "delta_ops", "sprint")
+          "train_families", "serve", "serve_moe", "encdec", "ssm_kernel",
+          "serve_ssm", "delta_ops", "sprint")
 # train_families: (arch, layers, launcher flags), each at its published
 # widths with only the depth cut; the first (the hybrid) snapshots
 FAMILY_DRIVES = (
     ("hymba-1.5b", 4, ("--steps", "2", "--snapshot-every", "1")),
     ("falcon-mamba-7b", 1, ("--steps", "2", "--snapshot-every", "0")),
     ("deepseek-moe-16b", 1, ("--steps", "2", "--snapshot-every", "0")))
+# the encdec phase: seamless-m4t-medium's capsule steps at B 4, T 256
+# (frames as long as the tokens), then the serve launcher on LAUNCHER;
+# the attention kernel is also held at T 1024 against these ragged
+# encoder lengths (non-causal)
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_TRAIN = {"batch": 4, "seq": 256, "steps": 2}
+ENCDEC_RAGGED_S = (1000, 1500)
 # (B, T, Di, N): tests/test_kernels.py's SSM_CASES
 SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
              (2, 128, 384, 4), (1, 33, 257, 16)]
@@ -979,13 +1006,31 @@ def _heads_first(*xs) -> tuple:
 
 
 def prefill_calls(launcher: bool) -> list:
-    """(B, T, prefill calls) of one configuration's serve drive: the
-    launcher's one batched prefill (where it runs), then the engine's
-    batch-1 prefills."""
+    """(B, T, prefill calls) of one decoder-only configuration's serve
+    drive: the launcher's one batched prefill (where it runs), then the
+    engine's batch-1 prefills."""
     out = [(LAUNCHER["requests"], LAUNCHER["prompt_len"], 1)] \
         if launcher else []
     return out + [(1, t, ENGINE_PROMPTS.count(t))
                   for t in sorted(set(ENGINE_PROMPTS))]
+
+
+def attn_groups(cfg, launcher: bool) -> list:
+    """(group, B, T, S, causal, launches) of the attention kernel on one
+    configuration's serve drive.  Decoder-only: one causal group per
+    prefill shape, a launch per layer and call.  Encoder-decoder: the
+    launcher's one prefill only (the reference's engine refuses the
+    family), frames as long as the prompt, in three groups of a launch
+    per layer: the decoder's causal self-attention, the encoder's full
+    self-attention and the full cross-attention."""
+    if cfg.enc_dec:
+        b, t = LAUNCHER["requests"], LAUNCHER["prompt_len"]
+        return [(group, b, t, t, causal, cfg.n_layers)
+                for group, causal in (("decoder_self", True),
+                                      ("encoder_self", False),
+                                      ("cross", False))]
+    return [(f"B{b}_T{t}", b, t, t, True, calls * cfg.n_layers)
+            for b, t, calls in prefill_calls(launcher)]
 
 
 def heads(cfg) -> tuple:
@@ -1023,20 +1068,21 @@ SPLIT_SHAPES = ((1, 97), (1, 250), (1, 512), (1, 777), (1, 2000),
                 (8, 2048))
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, causal: bool = True):
     import torch.nn.functional as F
-    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                           enable_gqa=True)
 
 
-def _time_sdpa(q, k, v, reps: int) -> dict:
+def _time_sdpa(q, k, v, reps: int, causal: bool = True) -> dict:
+    """SDPA at the kernel call's causality (T = S where causal)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     with sdpa_kernel([getattr(SDPBackend, SDPA_FLASH)]):
-        flash = _time_ms(lambda: _sdpa(q, k, v), reps)
-    default = _time_ms(lambda: _sdpa(q, k, v), reps)
+        flash = _time_ms(lambda: _sdpa(q, k, v, causal), reps)
+    default = _time_ms(lambda: _sdpa(q, k, v, causal), reps)
     picked = SDPBackend(torch._fused_sdp_choice(
-        q, k, v, is_causal=True, enable_gqa=True)).name
+        q, k, v, is_causal=causal, enable_gqa=True)).name
     return {"sdpa_flash_ms": flash, "sdpa_default_ms": default,
             "sdpa_default_backend": picked,
             "library_ms": min(flash, default)}
@@ -1140,8 +1186,13 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
     checks = [(case, dtype, False) for case in ATTN_CASES
               for dtype in ("float32", "bfloat16")]
     for cfg, launcher in paths.values():
-        checks += [((b, t, t, *heads(cfg), True), "bfloat16", model)
-                   for b, t, _ in prefill_calls(launcher)
+        shapes = [(b, t, s, causal)
+                  for _, b, t, s, causal, _ in attn_groups(cfg, launcher)]
+        if cfg.enc_dec:     # the encoder's length need not be the prompt's
+            b, t = LAUNCHER["requests"], LAUNCHER["prompt_len"]
+            shapes += [(b, t, s, False) for s in ENCDEC_RAGGED_S]
+        checks += [((b, t, s, *heads(cfg), causal), "bfloat16", model)
+                   for b, t, s, causal in dict.fromkeys(shapes)
                    for model in (False, True)]
     max_err = {"float32": 0.0, "bfloat16": 0.0}
     for (b, t, s, nh, nkh, d, causal), dtype, model in checks:
@@ -1163,21 +1214,24 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
         del q, k, v, out, want
     torch.cuda.empty_cache()
 
-    def timed(b, t, hs, model=False):
+    def timed(b, t, s, hs, causal=True, model=False):
         """The kernel's time at one shape, in the kernel's layout or, with
         ``model``, through ``attend`` in the model's (the serving path's
-        call); the plain version and SDPA on the same views."""
+        call); the plain version and SDPA on the same views, at the same
+        causality."""
         h, kh, hd = hs
-        q, k, v = _attn_inputs(b, t, t, h, kh, hd, "bfloat16", gen, model)
+        q, k, v = _attn_inputs(b, t, s, h, kh, hd, "bfloat16", gen, model)
         if model:
-            ms = _time_ms(lambda: attend(q, k, v), reps)
+            ms = _time_ms(lambda: attend(q, k, v, causal=causal), reps)
             q, k, v = _heads_first(q, k, v)
         else:
-            ms = _time_ms(lambda: flash_attention(q, k, v), reps)
-        row = {"B": b, "T": t, "ms": ms, "plain_ms": _time_ms(
-            lambda: attention_ref(q, k, v, causal=True), reps)}
-        row.update(_time_sdpa(q, k, v, reps))
-        row.update(attn_work(b, t, t, h, kh, hd, True, "bfloat16"))
+            ms = _time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          reps)
+        row = {"B": b, "T": t, "S": s, "causal": causal, "ms": ms,
+               "plain_ms": _time_ms(
+                   lambda: attention_ref(q, k, v, causal=causal), reps)}
+        row.update(_time_sdpa(q, k, v, reps, causal))
+        row.update(attn_work(b, t, s, h, kh, hd, causal, "bfloat16"))
         row.update(_rates(row))
         del q, k, v
         torch.cuda.empty_cache()
@@ -1195,16 +1249,22 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
            "max_abs_err": max_err, "reps": reps,
            "library": f"scaled_dot_product_attention, the faster of "
                       f"{SDPA_FLASH} and the default dispatch",
-           "shapes": [timed(b, t, GRANITE_HEADS) for b, t in TIMED_SHAPES],
+           "shapes": [timed(b, t, t, GRANITE_HEADS)
+                      for b, t in TIMED_SHAPES],
            "split": [split(b, t) for b, t in SPLIT_SHAPES],
            "p_rounding": _p_rounding(gen)}
     # each serve drive's main path, as it runs: attend on the model's
-    # layout, n_layers launches per prefill call
-    rows = {name: [(timed(b, t, heads(cfg), True), calls * cfg.n_layers)
-                   for b, t, calls in prefill_calls(launcher)]
-            for name, (cfg, launcher) in paths.items()}
+    # layout, each group's launches (attn_groups)
+    groups = {name: attn_groups(cfg, launcher)
+              for name, (cfg, launcher) in paths.items()}
+    rows = {name: [(timed(b, t, s, heads(paths[name][0]), causal, True), n)
+                   for _, b, t, s, causal, n in g]
+            for name, g in groups.items()}
     res["paths"] = {name: _sum_path(r, "bfloat16")
                     for name, r in rows.items()}
+    res["groups"] = {name: [{"group": g[0], "launches": n, **row}
+                            for g, (row, n) in zip(groups[name], r)]
+                     for name, r in rows.items()}
     res["path"] = _sum_path([x for r in rows.values() for x in r],
                             "bfloat16")
     for path in (*res["paths"].values(), res["path"]):
@@ -1973,16 +2033,21 @@ def _checked(fn, flag):
     return step
 
 
-def _isolated(cfg, run, params, prompt, n_new, max_len, forced=None):
+def _isolated(cfg, run, params, prompt, n_new, max_len, forced=None,
+              frames=None):
     """Greedy batch-1 generation outside the engine; -> (the greedy token
     at each position, the logits that chose it).  With ``forced``, those
-    tokens are fed instead of the greedy ones (teacher forcing)."""
+    tokens are fed instead of the greedy ones (teacher forcing); an
+    encoder-decoder's prefill also takes the request's ``frames``."""
     import torch
 
     from repro_torch.models import api
     prefill = api.make_prefill_step(cfg, max_len, run)
     decode = api.make_decode_step(cfg, run)
-    lg, caches = prefill(params, {"tokens": prompt[None, :]})
+    batch = {"tokens": prompt[None, :]}
+    if frames is not None:
+        batch["frames"] = frames[None]
+    lg, caches = prefill(params, batch)
     logits = [lg[0]]
     out = [int(torch.argmax(lg[0, :cfg.vocab_size]))]
     for i in range(n_new - 1):
@@ -2193,18 +2258,24 @@ def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
     return res
 
 
-def _twin_gap(cfg, run, params, prompt, out, logits) -> dict:
+def _twin_gap(cfg, run, params, prompt, out, logits, frames=None) -> dict:
     """An isolated generation's prefill and decode ``logits`` (its tokens
-    ``out``) against ``lm.forward_train`` over the prompt and the fed
-    tokens, in one call."""
+    ``out``) against ``lm.forward_train`` (an encoder-decoder's
+    ``encdec.forward_train`` over the same ``frames``) over the prompt
+    and the fed tokens, in one call."""
     import numpy as np
     import torch
 
-    from repro_torch.models import lm
-    seq = np.concatenate([prompt, np.asarray(out[:-1], np.int32)])
+    from repro_torch.models import encdec, lm
+    seq = torch.as_tensor(np.concatenate(
+        [prompt, np.asarray(out[:-1], np.int32)]), device="cuda")[None]
     with torch.no_grad():
-        full, metrics = lm.forward_train(
-            params, cfg, torch.as_tensor(seq, device="cuda")[None], run)
+        if frames is not None:
+            full, metrics = encdec.forward_train(
+                params, cfg, torch.as_tensor(frames, device="cuda")[None],
+                seq, run)
+        else:
+            full, metrics = lm.forward_train(params, cfg, seq, run)
     start = len(prompt) - 1
     want = full[0, start:start + len(out)].float()
     got = logits.float()
@@ -2222,19 +2293,21 @@ def _twin_gap(cfg, run, params, prompt, out, logits) -> dict:
            if metrics else {})}
 
 
-def _serve_trace(cfg, run, params, prompt) -> dict:
-    """(d) where the time goes: one batch-1 prefill of ``prompt``, then 8
-    decode steps, each traced."""
+def _serve_trace(cfg, run, params, prompt, frames=None) -> dict:
+    """(d) where the time goes: one batch-1 prefill of ``prompt`` (with an
+    encoder-decoder's ``frames``), then 8 decode steps, each traced."""
     import torch
 
     from repro_torch.models import api
     prefill = api.make_prefill_step(cfg, ENGINE_MAX_LEN, run)
     decode = api.make_decode_step(cfg, run)
     box = {}
+    batch = {"tokens": prompt[None, :]}
+    if frames is not None:
+        batch["frames"] = frames[None]
 
     def do_prefill():
-        box["lg"], box["caches"] = prefill(params,
-                                           {"tokens": prompt[None, :]})
+        box["lg"], box["caches"] = prefill(params, batch)
 
     def do_decode():
         tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
@@ -2255,9 +2328,11 @@ def _path_kernels() -> dict:
 
 def per_prefill(cfg) -> dict:
     """Launches of each kernel per prefill call: one per layer where the
-    family has the block (attention: dense and hybrid; scan: SSM and
-    hybrid), none elsewhere."""
-    return {"flash_attention": cfg.n_layers * (cfg.family != "ssm"),
+    family has the block (attention: dense, hybrid and encoder-decoder,
+    whose layers have three: the encoder's, the decoder's self- and
+    cross-attention; scan: SSM and hybrid), none elsewhere."""
+    return {"flash_attention": cfg.n_layers * (cfg.family != "ssm")
+            * (3 if cfg.enc_dec else 1),
             "ssm_scan": cfg.n_layers * (cfg.family in ("ssm", "hybrid"))}
 
 
@@ -2341,6 +2416,120 @@ def phase_serve_moe(cfg, forward_tol: float = 0.1) -> dict:
     return res
 
 
+def _encdec_train(cfg) -> dict:
+    """(a) A seamless-m4t-medium capsule booted on the card takes
+    ``ENCDEC_TRAIN["steps"]`` steps at B 4, T 256 under the train
+    launcher's deterministic settings, with frames (4, 256, 1024) float32
+    from numpy seed 0; one ``api.make_train_step`` step from the same
+    state first (its loss must equal the capsule's first, bit for bit:
+    the same forward on the same inputs).  Checks: finite losses, the
+    first within 1 of ln V, finite params after the steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.core.capsule import CapsuleSpec, boot
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.launch.train import resolve_device
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    resolve_device("cuda")
+    run = RunConfig(remat="none")
+    spec = CapsuleSpec(cfg.name, "train_4k", run, arch_override=cfg)
+    booted = boot(spec, "cuda", verify_hash=spec.manifest_hash)
+    _peak_gb()                                          # resets the peak
+    specs = api.state_specs(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = api.TrainState(init_tree(specs.params, gen, device="cuda"),
+                           init_tree(specs.opt, gen, device="cuda"))
+    b, t = ENCDEC_TRAIN["batch"], ENCDEC_TRAIN["seq"]
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (b, t + 1)).astype(np.int32)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "frames": rng.standard_normal((b, t, cfg.d_model))
+             .astype(np.float32)}
+    res = {"params": sum(p.numel() for p in tu.leaves(state.params)),
+           "batch": b, "seq": t, "frames": [b, t, cfg.d_model],
+           "boot_wall_s": booted.boot_wall_s}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    (new, metrics), res["make_train_step_ms"] = timed(
+        lambda: api.make_train_step(cfg, run)(state, batch))
+    api_loss = float(metrics["loss"])
+    del new, metrics
+    losses, step_ms = [], []
+    for _ in range(ENCDEC_TRAIN["steps"]):
+        (state, loss), ms = timed(lambda: booted.step(state, batch))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    res.update({"losses": losses, "step_ms": step_ms,
+                "make_train_step_loss": api_loss,
+                "tokens_per_s": [b * t / ms * 1e3 for ms in step_ms],
+                "peak_gb": _peak_gb(), "ln_vocab": math.log(cfg.vocab_size),
+                # one more step, traced and dropped: where a step's time goes
+                "trace_step": _trace(lambda: booted.step(state, batch))})
+    check(all(math.isfinite(x) for x in losses),
+          f"encdec train: non-finite losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"encdec train: first loss {losses[0]} not within 1 of ln V")
+    check(api_loss == losses[0],
+          f"encdec train: make_train_step loss {api_loss} != the "
+          f"capsule's {losses[0]}")
+    check(_finite(state.params), "encdec train: non-finite params")
+    del state
+    _release()
+    return res
+
+
+def phase_encdec(cfg, forward_tol: float = 0.1) -> dict:
+    """seamless-m4t-medium at full width (12 + 12 layers, 977,860,608
+    params), bf16 serving: (a) the capsule's training steps
+    (``_encdec_train``); (b) ``repro_torch.launch.serve`` on
+    ``LAUNCHER``, 8 prompts of 1024 tokens with frames of 1024, 32 new
+    tokens: the attention kernel's counter must read 3 x 12 for the one
+    prefill (the encoder's and the cross-attention's full, the decoder's
+    causal) and decode none; (c) request 0's prefill and decode logits,
+    generated alone, against ``encdec.forward_train`` over its prompt,
+    the fed tokens and its frames, within ``forward_tol`` of the logit
+    scale, as for the decoder-only families.  The kernel's timings on
+    this path are the ``attn_kernel`` phase's ``encdec`` groups."""
+    import numpy as np
+
+    res = {"phase": "encdec", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "train": _encdec_train(cfg)}
+    serve, params, run = _serve_launcher(cfg, _path_kernels(),
+                                         per_prefill(cfg))
+    res["params"] = serve.pop("params")
+    res["serve"] = {"dtype": "bfloat16", **serve}
+    rng = np.random.default_rng(0)      # the launcher's draws, request 0
+    prompts = rng.integers(0, cfg.vocab_size, (
+        LAUNCHER["requests"], LAUNCHER["prompt_len"])).astype(np.int32)
+    frames = rng.standard_normal((LAUNCHER["requests"],
+                                  LAUNCHER["prompt_len"], cfg.d_model)
+                                 ).astype(np.float32)
+    max_len = LAUNCHER["prompt_len"] + LAUNCHER["gen"]
+    out, logits = _isolated(cfg, run, params, prompts[0], LAUNCHER["gen"],
+                            max_len, frames=frames[0])
+    gap = _twin_gap(cfg, run, params, prompts[0], out, logits, frames[0])
+    res["forward_train_check"] = {"request": 0, **gap,
+                                  "tolerance": forward_tol}
+    check(gap["max_abs_err"] <= forward_tol * gap["logit_scale"],
+          f"encdec prefill/decode logits vs forward_train: max abs err "
+          f"{gap['max_abs_err']} > {forward_tol} x logit scale "
+          f"{gap['logit_scale']}")
+    res["trace"] = _serve_trace(cfg, run, params, prompts[0], frames[0])
+    del params, logits
+    _release()
+    emit(res)
+    return res
+
+
 def full_width(arch: str, n_layers: int):
     """The registered config, only ``n_layers`` cut (0 keeps them all):
     ``reduced`` would also shrink d_state, dt_rank and the experts."""
@@ -2376,6 +2565,9 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-layers", type=int, default=0,
                     help="depth of the serve_moe phase (0: all 28 of "
                          "deepseek-moe-16b)")
+    ap.add_argument("--encdec-layers", type=int, default=0,
+                    help="depth of the encdec phase, encoder and decoder "
+                         "each (0: all 12 of seamless-m4t-medium)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     sys.path.insert(0, str(ROOT / "src"))
@@ -2385,11 +2577,12 @@ def main(argv=None) -> int:
     falcon = full_width("falcon-mamba-7b", args.ssm_layers)
     hymba = full_width("hymba-1.5b", args.ssm_layers)
     deepseek = full_width("deepseek-moe-16b", args.moe_layers)
+    seamless = full_width(ENCDEC_ARCH, args.encdec_layers)
     families = [(full_width(arch, n), flags)
                 for arch, n, flags in FAMILY_DRIVES]
     # the serve drives whose prefills launch each kernel: (cfg, launcher)
     attn_paths = {"serve": (serve_cfg, True), "serve_ssm": (hymba, False),
-                  "serve_moe": (deepseek, True)}
+                  "serve_moe": (deepseek, True), "encdec": (seamless, True)}
     ssm_paths = {"serve_ssm": (falcon, True), "serve_ssm_hybrid":
                  (hymba, False)}
 
@@ -2426,6 +2619,7 @@ def main(argv=None) -> int:
     fam = run("train_families", phase_train_families, families)
     sv = run("serve", phase_serve, serve_cfg)
     sv_moe = run("serve_moe", phase_serve_moe, deepseek)
+    en = run("encdec", phase_encdec, seamless)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
     # last, as standalone users run them: outside the train launcher's
@@ -2434,7 +2628,7 @@ def main(argv=None) -> int:
         dops = run("delta_ops", phase_delta_ops, cfg)
         sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
-    if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, ssm,
+    if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, en, ssm,
                 sv_ssm):
         return 0
     # the launches counted on each main path's run, against the launches
@@ -2448,7 +2642,8 @@ def main(argv=None) -> int:
             ["flash_attention"],
             "serve_moe": sv_moe[d_name]["launcher"]["launches"]
             ["flash_attention"]
-            + sv_moe[d_name]["engine"]["launches"]["flash_attention"]},
+            + sv_moe[d_name]["engine"]["launches"]["flash_attention"],
+            "encdec": en["serve"]["launches"]["flash_attention"]},
         "ssm_scan": {
             "serve_ssm": sv_ssm[f_name]["launcher"]["launches"]["ssm_scan"]
             + sv_ssm[f_name]["engine"]["launches"]["ssm_scan"],

@@ -11,7 +11,8 @@ version (``ref.attention_ref`` over the first ``s_valid`` keys, which is
 the same function as masking the rest); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu`` (built with ``nvcc`` at
 first use into ``build/`` beside this file, bound through ``ctypes``) or
-raises.  There is no fallback from the card to the plain version.
+raises.  There is no fallback from the card to the plain version, and
+no backward on either route.
 
 The kernel reads q, k and v and writes o through their batch, head and
 row strides, so strided views (the model's (B, T, H, hd) tensors seen as
@@ -138,8 +139,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     given, receives the result and is returned: it must have q's shape,
     dtype and device and a layout the kernel can write (see
     ``_readable``); without it the result takes q's layout where q is
-    dense, else a contiguous one."""
+    dense, else a contiguous one.  Inputs that require grad (with grad
+    mode on) are refused on either route: the kernel has no backward,
+    as the TPU kernel has none, so training takes the
+    ``blocked_attention`` twin."""
     s_valid = _check(q, k, v, s_valid)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention: no backward; inputs that "
+                           "require grad belong on the blocked_attention "
+                           "twin")
     if out is not None and (out.shape != q.shape or out.dtype != q.dtype
                             or out.device != q.device
                             or not _readable(out)):

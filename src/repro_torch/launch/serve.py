@@ -8,10 +8,12 @@ kernel), then decoded token by token with the KV and SSM caches:
         --requests 8 --prompt-len 32 --gen 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --device cpu
 
 The CLI serves ``reduced(get_arch(arch))``; ``build_server`` takes any
 ``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b, falcon-mamba-7b,
-hymba-1.5b and deepseek-moe-16b at full width).  Runs on ``cuda`` unless
+hymba-1.5b, deepseek-moe-16b and seamless-m4t-medium at full width).  Runs on ``cuda`` unless
 ``--device cpu`` is given; with no GPU and no such request it stops with
 an error.  On the card it takes the train launcher's deterministic
 settings.  Sampling at ``--temperature`` > 0 draws from a
@@ -87,11 +89,17 @@ def build_server(cfg: ArchConfig, args: argparse.Namespace) -> Server:
 
 def serve(server: Server, args: argparse.Namespace) -> dict:
     """Prefill ``--requests`` prompts of ``--prompt-len`` random tokens as
-    one batch, then decode ``--gen`` - 1 more tokens; -> summary."""
+    one batch (an encoder–decoder's with as many random frames each,
+    drawn after the prompts from the same generator, as the reference
+    does), then decode ``--gen`` - 1 more tokens; -> summary."""
     cfg, dev = server.cfg, server.device
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.requests, args.prompt_len)).astype(np.int32)
+    batch = {"tokens": prompts}
+    if cfg.enc_dec:
+        batch["frames"] = rng.standard_normal(
+            (args.requests, args.prompt_len, cfg.d_model)).astype(np.float32)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def sync():
@@ -107,7 +115,7 @@ def serve(server: Server, args: argparse.Namespace) -> dict:
 
     sync()
     t0 = time.perf_counter()
-    logits, caches = server.prefill(server.params, {"tokens": prompts})
+    logits, caches = server.prefill(server.params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()

@@ -21,7 +21,9 @@ N`` with ``--rebalance`` and ``--telemetry DIR`` work as in the reference
 launcher.  ``--preset full`` keeps the assigned architecture and refuses
 here.  ``--arch`` takes any decoder-only family: dense, MoE
 (deepseek-moe-16b, qwen3-moe-30b-a3b), SSM (falcon-mamba-7b) and hybrid
-(hymba-1.5b).
+(hymba-1.5b); an encoder–decoder (seamless-m4t-medium) is refused up
+front, since the token stream yields no frames (the reference's launcher
+fails on them at its first unit).
 """
 from __future__ import annotations
 
@@ -148,12 +150,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Refuse what the port does not run: only ``--preset full``."""
+def check_ported(args: argparse.Namespace,
+                 cfg: Optional[ArchConfig] = None) -> None:
+    """Refuse what the port does not run: ``--preset full``, and an
+    encoder–decoder (``--arch``, or ``cfg`` where given), whose batches
+    need frames that ``TokenStream`` does not yield; the reference's
+    launcher stops on the missing frames at its first unit."""
     if args.preset == "full":
         raise SystemExit("--preset full is TPU-scale; the port runs "
                          "reduced presets, or a config passed to "
                          "build_trainer")
+    cfg = cfg or get_arch(args.arch)
+    if cfg.enc_dec:
+        raise SystemExit(f"{cfg.name} is an encoder-decoder: the launcher's "
+                         "token stream has no frames; train it through a "
+                         "capsule or api.make_train_step")
 
 
 @dataclass
@@ -176,7 +187,7 @@ def build_trainer(cfg: ArchConfig, args: argparse.Namespace) -> Session:
     """Everything ``main`` runs, for any ``ArchConfig``: model, optimizer,
     data, scheduler, snapshot store and trainer, restored from the chain
     on disk with ``--resume``."""
-    check_ported(args)
+    check_ported(args, cfg)
     device = resolve_device(args.device)
     run = RunConfig(remat="none", block_kv=min(args.seq, 512), ssm_chunk=64)
     specs = api.state_specs(cfg)

@@ -1,5 +1,7 @@
-"""Public model API: specs, train state, the train step, the evaluation
-loss and the prefill and decode steps of the serving path.
+"""Public model API: specs, input specs, train state, the train step, the
+evaluation loss and the prefill and decode steps of the serving path, for
+the decoder-only families (``lm``) and the encoder–decoder (``encdec``),
+whose batches also carry ``frames``.
 
 ``TrainState``/``AdamWState`` are NamedTuples in the reference's field
 order, so the state flattens to the reference's snapshot keys
@@ -12,8 +14,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as tu
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed.sharding import TensorSpec
+from repro_torch.models import encdec, lm
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.models.lm import RunConfig
 from repro_torch.optim import adamw
@@ -26,8 +29,7 @@ class TrainState(NamedTuple):
 
 
 def param_specs(cfg: ArchConfig):
-    _require_decoder_only(cfg)
-    return lm.lm_specs(cfg)
+    return encdec.encdec_specs(cfg) if cfg.enc_dec else lm.lm_specs(cfg)
 
 
 def state_specs(cfg: ArchConfig) -> TrainState:
@@ -36,14 +38,33 @@ def state_specs(cfg: ArchConfig) -> TrainState:
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int):
-    _require_decoder_only(cfg)
+    if cfg.enc_dec:
+        return encdec.encdec_cache_specs(cfg, batch, max_len)
     return lm.cache_specs(cfg, batch, max_len)
 
 
-def _require_decoder_only(cfg: ArchConfig) -> None:
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """``TensorSpec`` stand-ins for every input of a step at ``shape``.
+
+    Modality frontends are stubs, as in the reference: audio provides
+    precomputed frame embeddings; chameleon's VQ ids live in the shared
+    vocab so its inputs are ordinary token ids."""
+    b, t = shape.global_batch, shape.seq_len
+
+    def tok(*s):
+        return TensorSpec(tuple(s), ("batch",) + (None,) * (len(s) - 1),
+                          torch.int32)
+
+    if shape.kind == "decode":
+        # one new token against a cache of length t
+        return {"tokens": tok(b, 1), "index": TensorSpec((), (), torch.int32)}
+    out = {"tokens": tok(b, t)}
+    if shape.kind == "train":
+        out["labels"] = tok(b, t)
     if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder models are not yet "
-                                  "ported to repro_torch")
+        out["frames"] = TensorSpec((b, t, cfg.d_model),
+                                   ("batch", None, "embed"), torch.float32)
+    return out
 
 
 def _on(params, x) -> torch.Tensor:
@@ -51,37 +72,45 @@ def _on(params, x) -> torch.Tensor:
     return torch.as_tensor(x, device=params["embed"].device)
 
 
+def _forward_train(cfg: ArchConfig, run: RunConfig, params, batch: dict):
+    """The family's training forward on ``batch`` -> (logits, metrics)."""
+    tokens = _on(params, batch["tokens"])
+    if cfg.enc_dec:
+        return encdec.forward_train(params, cfg,
+                                    _on(params, batch["frames"]), tokens,
+                                    run)
+    return lm.forward_train(params, cfg, tokens, run)
+
+
 def make_prefill_step(cfg: ArchConfig, max_len: int,
                       run: RunConfig = RunConfig()):
-    _require_decoder_only(cfg)
-
     def prefill_step(params, batch: dict):
-        return lm.prefill(params, cfg, _on(params, batch["tokens"]),
-                          max_len, run)
+        tokens = _on(params, batch["tokens"])
+        if cfg.enc_dec:
+            return encdec.prefill(params, cfg, _on(params, batch["frames"]),
+                                  tokens, max_len, run)
+        return lm.prefill(params, cfg, tokens, max_len, run)
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig, run: RunConfig = RunConfig()):
-    _require_decoder_only(cfg)
+    fn = encdec.decode_step if cfg.enc_dec else lm.decode_step
 
     def decode_step(params, caches, batch: dict):
-        return lm.decode_step(params, cfg, caches,
-                              _on(params, batch["tokens"]),
-                              _on(params, batch["index"]), run)
+        return fn(params, cfg, caches, _on(params, batch["tokens"]),
+                  _on(params, batch["index"]), run)
     return decode_step
 
 
 def make_eval_loss(cfg: ArchConfig, run: RunConfig = RunConfig()):
     """-> loss(params, batch): mean token cross-entropy.  ``batch`` holds
-    ``tokens``/``labels`` (B, T) int arrays or tensors; they are moved to
-    the params' device."""
-    _require_decoder_only(cfg)
-
+    ``tokens``/``labels`` (B, T) int arrays or tensors, and for an
+    encoder–decoder ``frames`` (B, S, D); they are moved to the params'
+    device."""
     def eval_loss(params, batch: dict):
-        tokens = _on(params, batch["tokens"])
-        labels = _on(params, batch["labels"])
-        logits, _ = lm.forward_train(params, cfg, tokens, run)
-        return softmax_cross_entropy(logits, labels, cfg.vocab_size)
+        logits, _ = _forward_train(cfg, run, params, batch)
+        return softmax_cross_entropy(logits, _on(params, batch["labels"]),
+                                     cfg.vocab_size)
     return eval_loss
 
 
@@ -110,12 +139,10 @@ def make_train_step(cfg: ArchConfig, run: RunConfig = RunConfig(),
     z-loss added), its gradient and one AdamW update, as the reference's.
     ``metrics`` holds the model's metrics, ``loss``, ``grad_norm`` and
     ``lr``."""
-    _require_decoder_only(cfg)
     vocab = cfg.vocab_size
 
     def loss_fn(params, batch):
-        logits, metrics = lm.forward_train(
-            params, cfg, _on(params, batch["tokens"]), run)
+        logits, metrics = _forward_train(cfg, run, params, batch)
         loss = softmax_cross_entropy(logits, _on(params, batch["labels"]),
                                      vocab)
         if "moe_aux" in metrics:

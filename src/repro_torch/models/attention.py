@@ -76,16 +76,18 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
-    """Causal attention that also returns the layer's KV cache."""
+                 positions: torch.Tensor, *,
+                 causal: bool = True) -> tuple[torch.Tensor, KVCache]:
+    """Attention that also returns the layer's KV cache: causal (the
+    decoder's prefill) or full (the encoder's, ``causal=False``)."""
     q, k, v = _qkv(p, x, cfg, positions)
     if cfg.window:
         rep = cfg.n_heads // cfg.n_kv_heads
         out = blocked_attention(q, layers.repeat_kv(k, rep),
                                 layers.repeat_kv(v, rep),
-                                causal=True, window=cfg.window)
+                                causal=causal, window=cfg.window)
     else:
-        out = attn_ops.attend(q, k, v, causal=True)
+        out = attn_ops.attend(q, k, v, causal=causal)
     out = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
     return out, KVCache(k, v)
 

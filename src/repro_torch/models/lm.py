@@ -211,7 +211,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             x = x + y
         else:
             a, kv = attention.attn_prefill(lp["attn"], xn, cfg, positions)
-            new_cache["kv"] = _pad_cache(kv, max_len)
+            new_cache["kv"] = pad_cache(kv, max_len)
             if cfg.family == "hybrid":
                 s, new_cache["ssm"] = ssm.ssm_train(lp["ssm"], xn, cfg,
                                                     run.ssm_chunk, True)
@@ -225,7 +225,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     return logits, tu.tree_map(lambda *ls: torch.stack(ls), *per_layer)
 
 
-def _pad_cache(kv: KVCache, max_len: int) -> KVCache:
+def pad_cache(kv: KVCache, max_len: int) -> KVCache:
     """(B, T, K, hd) -> (B, max_len, K, hd) bf16, zeros past T: the cache
     is bf16 whatever the compute dtype, as in the reference."""
     def pad(a):

@@ -21,7 +21,9 @@ order), and bit for bit between a strip and the same rows of the full
 matrix (one fixed summation order per element); for the uplink's int8
 quantizer and its images, bit for bit against the CPU (IEEE division and
 round half to even on both), and the refs an encoder on the card writes
-equal the CPU encoder's.
+equal the CPU encoder's; for the encoder–decoder on the card against the
+CPU, 2e-5 (f32: the same arithmetic in another order) and 2e-2 (bf16) of
+the largest value, its bf16 caches one bf16 step apart at most.
 """
 from __future__ import annotations
 
@@ -749,3 +751,138 @@ def test_ssm_train_step_on_the_card_matches_cpu(deterministic, arch):
         assert g.device.type == "cuda", key
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+# ------------------------------------------------------ encoder–decoder
+SEAMLESS_ATTN_CASES = [
+    # (B, T, S): seamless-m4t-medium's heads (16 / 16 of 64), non-causal
+    # as the encoder and the cross-attention call the kernel: T = S, and a
+    # ragged S shorter and longer than T
+    (8, 1024, 1024), (8, 1024, 1000), (8, 1024, 1500),
+]
+
+
+@pytest.mark.parametrize("model", [False, True])
+@pytest.mark.parametrize("case", SEAMLESS_ATTN_CASES)
+def test_flash_attention_non_causal_at_seamless_heads(cuda, case, model):
+    """bf16, in the kernel's layout and through ``attend`` on the model's
+    (B, T, H, hd) tensors, against the plain version within 2e-2."""
+    b, t, s = case
+    h, hd = 16, 64
+    gen = torch.Generator().manual_seed(10)
+    shapes = (((b, t, h, hd), (b, s, h, hd)) if model
+              else ((b, h, t, hd), (b, h, s, hd)))
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().to(cuda)
+               for shape in (shapes[0], shapes[1], shapes[1]))
+    before = flash_attention.launches
+    if model:
+        out = attn_ops.attend(q, k, v, causal=False).transpose(1, 2)
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    else:
+        out = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _seamless():
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.models import api
+    cfg = reduced(get_arch("seamless-m4t-medium"))
+    specs = api.state_specs(cfg)
+    gen = torch.Generator().manual_seed(0)
+    state = api.TrainState(init_tree(specs.params, gen, device="cpu"),
+                           init_tree(specs.opt, gen, device="cpu"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 12))
+             .astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 12))
+             .astype(np.int32),
+             "frames": rng.standard_normal((2, 20, cfg.d_model))
+             .astype(np.float32)}
+    return cfg, state, batch
+
+
+def _scaled_close(got, want, tol):
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_encdec_prefill_and_decode_on_the_card_match_cpu(deterministic,
+                                                         monkeypatch, dtype,
+                                                         tol):
+    """Reduced seamless-m4t-medium (T 12 against S 20): one prefill on the
+    card is 3 x L flash-attention launches (the encoder's L and the
+    cross-attention's L non-causal, the decoder's L causal); its logits
+    and both bf16 caches against the CPU's, then two decode steps (no
+    launch) from the CPU's caches.  The caches are held to one bf16 step
+    (an element straddling a rounding boundary), and the card's prefill
+    logits are taken over the CPU's rounded cross K/V, so that such a
+    step does not move them past ``tol``."""
+    from repro_torch.models import api, encdec
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.lm import RunConfig
+    cfg, state, batch = _seamless()
+    batch.pop("labels")
+    run = RunConfig(remat="none", compute_dtype=dtype)
+    prefill = api.make_prefill_step(cfg, 24, run)
+    decode = api.make_decode_step(cfg, run)
+    params = state.params
+    card = tu.tree_map(lambda t: t.to(deterministic), params)
+    want, want_caches = prefill(params, batch)
+    flash_attention.launches = 0
+    got, caches = prefill(card, batch)
+    assert flash_attention.launches == 3 * cfg.n_layers
+    cache_tol = max(tol, 2.0 ** -7)
+    for name in ("self_kv", "cross_kv"):
+        for g, w in zip(caches[name], want_caches[name], strict=True):
+            assert g.device.type == "cuda" and g.dtype == torch.bfloat16
+            _scaled_close(g, w, cache_tol)
+    rounded = iter(zip(*(c.to(deterministic)
+                         for c in want_caches["cross_kv"])))
+    monkeypatch.setattr(encdec, "_cross_kv", lambda lp, enc_out: KVCache(
+        *(c.to(enc_out.dtype) for c in next(rounded))))
+    got, _ = prefill(card, batch)
+    monkeypatch.undo()
+    _scaled_close(got, want, tol)
+    tok = np.asarray([[3], [5]], np.int32)
+    launches = flash_attention.launches
+    card_caches = tu.tree_map(lambda t: t.to(deterministic), want_caches)
+    for i in range(2):
+        want, want_caches = decode(params, want_caches,
+                                   {"tokens": tok, "index": 12 + i})
+        got, card_caches = decode(card, card_caches,
+                                  {"tokens": tok, "index": 12 + i})
+        _scaled_close(got, want, tol)
+        card_caches = tu.tree_map(lambda t: t.to(deterministic),
+                                  want_caches)
+    assert flash_attention.launches == launches
+
+
+def test_encdec_train_step_on_the_card_matches_cpu(deterministic):
+    """One ``make_train_step`` in float32 (the ``blocked_attention`` twin
+    throughout, no kernel launch) on the card against the CPU: loss,
+    gradient norm and the updated params within 2e-5 (relative, with a
+    floor of 2e-5 of the largest value)."""
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    cfg, state, batch = _seamless()
+    step = api.make_train_step(cfg, RunConfig(remat="full",
+                                              compute_dtype=torch.float32))
+    want, wm = step(state, batch)
+    before = flash_attention.launches
+    got, gm = step(tu.tree_map(lambda t: t.to(deterministic), state), batch)
+    assert flash_attention.launches == before
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[key].cpu(), wm[key], rtol=2e-5,
+                                   atol=0.0)
+    for (key, g), w in zip(tu.flatten_with_keys(got.params),
+                           tu.leaves(want.params), strict=True):
+        assert g.device.type == "cuda", key
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-5,
+                                   atol=2e-5 * float(w.abs().max()))

@@ -33,6 +33,7 @@ def test_port_imports_load_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.kernels.delta_encode.kernel" in mods
     assert "repro_torch.moe.moe" in mods
+    assert "repro_torch.models.encdec" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -79,7 +80,7 @@ COPIES = sorted(
                                 "scheduler", "control", "membership",
                                 "replica", "sim", "edge", "shardplane",
                                 "server")]
-    + ["data/pipeline.py"])
+    + ["data/pipeline.py", "launch/costmodel.py"])
 REWORDED = {"core/scheduler.py": {54}, "core/sim.py": {9, 49},
             "core/edge.py": {7}}
 

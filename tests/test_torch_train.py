@@ -3,9 +3,10 @@
 ``python -m repro_torch.launch.train --device cpu``: 4 rounds with a
 snapshot every 2, then a fresh ``--resume`` for 2 more, must give the
 uninterrupted 6-round run's losses bit for bit (tolerance: none — same
-seed, same arithmetic, same order).  Only ``--preset full`` refuses to
-run; without a GPU the default ``cuda`` device raises, and so does
-``chip_smoke.py``.
+seed, same arithmetic, same order).  Only ``--preset full`` and an
+encoder–decoder ``--arch`` refuse to run (the reference's launcher fails on
+the latter at its first unit); without a GPU the default ``cuda`` device
+raises, and so does ``chip_smoke.py``.
 
 Against the JAX launcher (``repro.launch.train.main``), both started from
 the JAX launcher's initial state (carried across with ``convert.py``): the
@@ -139,6 +140,27 @@ def test_restore_latest_defaults_to_the_trainers_device():
 def test_unported_flags_refuse(flag):
     with pytest.raises(SystemExit, match="TPU-scale"):
         train.main(["--device", "cpu", "--steps", "1", *flag])
+
+
+def test_launcher_refuses_an_encoder_decoder():
+    """seamless-m4t-medium is refused up front, by ``--arch`` and by a
+    config handed to ``build_trainer``: the token stream has no frames."""
+    from repro_torch.configs.base import get_arch, reduced
+    with pytest.raises(SystemExit, match="encoder-decoder"):
+        train.main(["--device", "cpu", "--arch", "seamless-m4t-medium",
+                    "--steps", "1"])
+    with pytest.raises(SystemExit, match="encoder-decoder"):
+        train.build_trainer(reduced(get_arch("seamless-m4t-medium")),
+                            train.parse_args(["--device", "cpu"]))
+
+
+def test_reference_launcher_fails_on_an_encoder_decoder():
+    """The refusal follows the reference: its launcher stops at the first
+    unit on the frames its stream does not yield."""
+    from repro.launch import train as j_train
+    with pytest.raises(KeyError, match="frames"):
+        j_train.main(["--arch", "seamless-m4t-medium", "--steps", "1",
+                      "--snapshot-every", "0"])
 
 
 LOSS_TOL = 5e-4

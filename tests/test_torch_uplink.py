@@ -484,6 +484,8 @@ def test_uplink_needs_a_server_and_the_projects_scheduler():
      True),
     ("qwen2-1.5b", {"compute_dtype": "float32"}, False),
     ("deepseek-moe-16b", {"capacity_factor": 2.0, "remat": "none"}, True),
+    ("seamless-m4t-medium", {}, False),
+    ("seamless-m4t-medium", {"remat": "none", "block_kv": 256}, True),
 ])
 def test_capsule_manifest_hash_equals_reference(arch, kw, override):
     jkw, tkw = dict(kw), dict(kw)
