@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,attn_kernel,encdec --encdec-layers 2
     python3 chip_smoke.py --phases build,delta_ops
     python3 chip_smoke.py --phases build,sprint
+    python3 chip_smoke.py --phases build,cells,examples
 
 Phases, each printing one JSON line:
 
@@ -24,17 +25,18 @@ Phases, each printing one JSON line:
 3. ``kernel``: ``fused_delta_tiles`` against its plain PyTorch version, bit
    for bit, on leaves of 1 and 12,320 tiles with ragged tails, every
    kernel dtype, and no / all / first-and-last / a random 10 % of tiles
-   changed; then, at the launch shapes of the train phase's diff snapshot
-   (28) and of the train_families phase's (hymba-1.5b's 32), checked
-   again and timed with CUDA events beside the plain version and the
-   bytes bound (every tile changed: 3N), and the train phase's largest
-   again with a random 10 % of its tiles changed, beside its own bytes
-   (2N and the changed tiles).
+   changed; then, at the launch shapes of the train phase's diff
+   snapshots (28 each, inline and async-writer), of the train_families
+   phase's (hymba-1.5b's 32) and of the examples phase's quickstart (5
+   diff snapshots of 2), checked again and timed with CUDA events
+   beside the plain version and the bytes bound (every tile changed:
+   3N), and the train phase's largest again with a random 10 % of its
+   tiles changed, beside its own bytes (2N and the changed tiles).
 4. ``attn_kernel``: ``flash_attention`` against its plain PyTorch
    version on the card, on ``tests/test_kernels.py``'s ``ATTN_CASES`` (hd
    32 to 256, MQA, S > T, ragged T and S) plus hd 16, in f32 (2e-5) and
    bf16 (2e-2), and on every prefill shape of the serve, serve_moe,
-   encdec and serve_ssm phases in bf16 (the encdec phase's causal
+   encdec, cells and serve_ssm phases in bf16 (the encdec phase's causal
    decoder self-attention and its full encoder self-attention and
    cross-attention, plus the full T 1024 against a ragged S 1000 and
    1500), each both in the kernel's (B, H, T, hd) layout and through
@@ -59,7 +61,13 @@ Phases, each printing one JSON line:
    5-round run whose losses must equal the first two's bit for bit;
    the newest snapshot must restore to the live state's exact bytes,
    and the kernel's launch counter must show the diff snapshot going
-   through it.
+   through it.  The uninterrupted run snapshots with ``--async-writer``
+   (the zero-stall writer: the round pays the probe and the copy, the
+   hashing and store writes run on a background thread): its two
+   manifests must equal the first run's but for their clock, and its
+   snapshot stall is reported beside the inline one.  Last,
+   ``NO_SNAPSHOT_ROUNDS`` rounds without snapshots give the training
+   tokens/s alone; their losses must be the first run's.
 6. ``train_uplink``: the same launcher at the same width and depth with
    ``--uplink --compress-grads`` (2 rounds of 2 units on 3 workers, no
    snapshots): each unit's gradient is quantized to int8 on the card and
@@ -73,7 +81,7 @@ Phases, each printing one JSON line:
    ``chunk_records``, encode, ``push_update``, ``decode_update``), the
    uplink bytes, and ``fused_delta_tiles`` at the unit's image shapes held
    bit for bit against its plain version and timed beside it and its
-   bytes bound.  Last, the framework-neutral planes at 2 layers
+   bytes bound.  Last, the framework-neutral planes at 1 layer
    (``--replicas 1 --edge-caches 1 --shards 2 --rebalance --telemetry``):
    2 rounds with a snapshot every round, then a ``--resume`` whose state
    must equal the first run's live state byte for byte, both as the
@@ -127,20 +135,29 @@ Phases, each printing one JSON line:
    prompt, its fed tokens and its frames, within 0.1 of the logit scale;
    then a capsule step, and request 0's prefill and 8 decode steps,
    each traced (``torch.profiler``).
-11. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+11. ``cells``: ``repro_torch.launch.cell.build_cell`` on the card at
+   granite-3-2b's full width and ``CELL_LAYERS`` layers, a train, a
+   prefill and a decode cell at ``CELL_SHAPES``' small B and T, each step
+   run twice and its outputs finite; its time and peak device memory
+   beside the dry run's bytes and traced FLOPs for the same cell on the
+   meta device (``launch.dryrun``, ``launch.flop_analysis``).  The
+   prefills' flash-attention launches are counted (one per layer and
+   call).
+12. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
    card, y and the final state h, in f32 (2e-4) and bf16 (2e-2 for y), on
    ``tests/test_kernels.py``'s ``SSM_CASES`` (N 4 to 16, ragged T and
    Di), on the design's edges (N 1, 5, 24 and 32; T 1; Di no multiple of
    a block's channels; T whose last time chunk is one step, a chunk less
    one and a whole chunk; B 1, T 8192 at Di 3200, the long carry chain)
-   and on every prefill shape of the serve_ssm phase; then timed with
+   and on every prefill shape of the serve_ssm and examples phases; then
+   timed with
    CUDA events beside the plain version, the bound and the special-
    function floor (the exponentials at 16 a clock per SM) at
    falcon-mamba-7b's Di 8192 and N 16 (B 1 and 8, T 512 to 2048) and at
    every prefill shape of the serve_ssm phase, each row with its launch
    plan (lanes per channel, time chunks, CUDA kernels a call) and, where
    it chunks, the time of the same call unchunked.
-12. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+13. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
    vocab 65024) at all 64 layers in bf16 through the launcher and the
    engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
    heads, d_inner 3200, N 16) at all 32 layers through the engine, with
@@ -148,7 +165,12 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
-13. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+14. ``examples``: ``examples/torch_quickstart.py``,
+   ``torch_project_switch.py`` and ``torch_serve_capsule.py`` at
+   ``device="cuda"``, each passing its own asserts; quickstart's diff
+   snapshots must launch ``fused_delta_tiles`` once per size bucket of
+   its state, serve_capsule's prefill ``ssm_scan`` once per layer.
+15. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
    ``delta_encode``, ``delta_apply``) against their plain versions, bit
    for bit, on the ``kernel`` phase's leaves and patterns; a
    ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
@@ -163,7 +185,7 @@ Phases, each printing one JSON line:
    ``delta_apply``, ``torch.bitwise_xor``, each of these two also by its
    device time alone (events around each call with the stream held busy
    ahead of them), shape by shape.
-14. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+16. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
     its size, 11,000 genes x 321 samples (Load: made with numpy from seed
     0, moved to the card), Exec: two row-strip work units through the
     port's ``VolunteerScheduler`` on two volunteers, each strip from
@@ -193,7 +215,8 @@ its time, the plain version's, the library call's where there is one and
 the bound summed over those launches) and,
 last, ``{"ok": true, ...}``.  Any failed check exits
 non-zero before that line.  Without a CUDA device it exits non-zero at
-once.
+once, and outside a checkout of the repository it cannot import the
+port's constants (``repro_torch.launch.mesh``) and fails.
 """
 from __future__ import annotations
 
@@ -216,9 +239,14 @@ import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch import mesh  # noqa: E402  (fails outside a checkout)
+
 # H100 SXM, NVIDIA data sheet: device memory rate, dense peak operations
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+HBM_BYTES_PER_S = mesh.HBM_BW
+PEAK_OPS_PER_S = {"bfloat16": mesh.PEAK_FLOPS_BF16,
+                  "float32": mesh.PEAK_FLOPS_FP32,
+                  "tf32": mesh.PEAK_FLOPS_TF32}
 REPLACES = "src/repro/kernels/delta_encode/kernel.py:151"
 SOURCE = "src/repro_torch/kernels/delta_encode/csrc/fused_delta.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention/kernel.py:78"
@@ -262,8 +290,8 @@ GRANITE_HEADS = (32, 8, 64)
 SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 PHASES = ("build", "kernel", "attn_kernel", "train", "train_uplink",
-          "train_families", "serve", "serve_moe", "encdec", "ssm_kernel",
-          "serve_ssm", "delta_ops", "sprint")
+          "train_families", "serve", "serve_moe", "encdec", "cells",
+          "ssm_kernel", "serve_ssm", "examples", "delta_ops", "sprint")
 # train_families: (arch, layers, launcher flags), each at its published
 # widths with only the depth cut; the first (the hybrid) snapshots
 FAMILY_DRIVES = (
@@ -277,6 +305,25 @@ FAMILY_DRIVES = (
 ENCDEC_ARCH = "seamless-m4t-medium"
 ENCDEC_TRAIN = {"batch": 4, "seq": 256, "steps": 2}
 ENCDEC_RAGGED_S = (1000, 1500)
+# the cells phase: granite-3-2b at full width, CELL_LAYERS of its 40
+# layers, each kind at (B, T) (decode: one token against a cache of T),
+# each step run CELL_RUNS times; the dry run's default remat
+CELL_LAYERS = 2
+CELL_SHAPES = {"train_4k": (2, 1024), "prefill_32k": (2, 2048),
+               "decode_32k": (8, 2048)}
+CELL_RUNS = 2
+# the train_uplink phase's planes drive: granite-3-2b's depth cut to this
+PLANES_LAYERS = 1
+# the train phase's drive without snapshots (training tokens/s alone)
+NO_SNAPSHOT_ROUNDS = 2
+# the examples phase: examples/torch_*.py, and the launches each makes of
+# the kernels: quickstart's 30 rounds snapshot every 5 (a base, then 5
+# diffs of reduced granite-3-2b's state); serve_capsule prefills 4
+# prompts of 24 tokens once on reduced falcon-mamba-7b
+EXAMPLES = ("torch_quickstart", "torch_project_switch",
+            "torch_serve_capsule")
+QUICKSTART_DIFFS = 5
+SERVE_CAPSULE_PREFILL = (4, 24, 1)
 # (B, T, Di, N): tests/test_kernels.py's SSM_CASES
 SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
              (2, 128, 384, 4), (1, 33, 257, 16)]
@@ -510,9 +557,9 @@ def path_launches(cfg) -> list:
 
 
 def phase_kernel(paths: dict, reps: int = 5) -> dict:
-    """``paths``: {name: cfg} of the train drives whose diff snapshot
-    launches the kernel; "train" (granite) also gives the top-level
-    numbers and the random 10 % case."""
+    """``paths``: {name: (cfg, diff snapshots)} of the drives whose diff
+    snapshots launch the kernel; "train" (granite) also gives the
+    top-level numbers (one snapshot's) and the random 10 % case."""
     import torch
 
     from repro_torch.kernels.delta_encode.kernel import (
@@ -552,7 +599,8 @@ def phase_kernel(paths: dict, reps: int = 5) -> dict:
 
     # times at the training paths' launch shapes, every tile changed (as
     # AdamW leaves the state), each distinct shape timed once
-    path_shapes = {name: path_launches(cfg) for name, cfg in paths.items()}
+    path_shapes = {name: path_launches(cfg)
+                   for name, (cfg, _) in paths.items()}
     launches = path_shapes["train"]
     shape_rows = {}
 
@@ -589,6 +637,11 @@ def phase_kernel(paths: dict, reps: int = 5) -> dict:
                       "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                       "bound_by": "bytes"}
     train = sums["train"]
+    # each path's diff snapshots, one snapshot's launches each
+    for name, (_, snapshots) in paths.items():
+        sums[name] = {k: v if k == "bound_by" else v * snapshots
+                      for k, v in sums[name].items()}
+        sums[name]["snapshots"] = snapshots
 
     # the largest launch again with a random 10 % of its tiles changed
     # (a probe between two rounds that left most tiles alone)
@@ -977,10 +1030,11 @@ def phase_sprint(reps: int = 5) -> dict:
 def attn_work(b: int, t: int, s: int, h: int, kh: int, hd: int,
               causal: bool, dtype: str) -> dict:
     """Operations and bytes one flash-attention call needs, and its bound:
-    the larger of the operations at the card's peak for the dtype and the
-    bytes (q, k, v read once, o written once) at its memory rate."""
-    pairs = sum(min(i + 1, s) for i in range(t)) if causal else t * s
-    ops = 4 * b * h * hd * pairs             # QK^T and PV, 2 each per pair
+    the larger of the operations (the kernel module's ``flops``, the count
+    the dry run adds for each call) at the card's peak for the dtype and
+    the bytes (q, k, v read once, o written once) at its memory rate."""
+    from repro_torch.kernels.flash_attention.kernel import flops
+    ops = flops(b, h, t, s, hd, causal)      # the dry run's count
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * hd * (2 * b * h * t + 2 * b * kh * s)
     ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -1171,8 +1225,8 @@ def _p_rounding(gen) -> dict:
 
 
 def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
-    """``paths``: {name: (cfg, launcher)} of the serve drives whose
-    prefills launch the kernel."""
+    """``paths``: {name: (cfg, groups)} of the drives whose prefills launch
+    the kernel, each group (name, B, T, S, causal, launches)."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention
@@ -1185,9 +1239,8 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
     # layout and in the model's, as the path hands it over through attend
     checks = [(case, dtype, False) for case in ATTN_CASES
               for dtype in ("float32", "bfloat16")]
-    for cfg, launcher in paths.values():
-        shapes = [(b, t, s, causal)
-                  for _, b, t, s, causal, _ in attn_groups(cfg, launcher)]
+    for cfg, groups in paths.values():
+        shapes = [(b, t, s, causal) for _, b, t, s, causal, _ in groups]
         if cfg.enc_dec:     # the encoder's length need not be the prompt's
             b, t = LAUNCHER["requests"], LAUNCHER["prompt_len"]
             shapes += [(b, t, s, False) for s in ENCDEC_RAGGED_S]
@@ -1255,8 +1308,7 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
            "p_rounding": _p_rounding(gen)}
     # each serve drive's main path, as it runs: attend on the model's
     # layout, each group's launches (attn_groups)
-    groups = {name: attn_groups(cfg, launcher)
-              for name, (cfg, launcher) in paths.items()}
+    groups = {name: g for name, (_, g) in paths.items()}
     rows = {name: [(timed(b, t, s, heads(paths[name][0]), causal, True), n)
                    for _, b, t, s, causal, n in g]
             for name, g in groups.items()}
@@ -1277,14 +1329,17 @@ def phase_attn_kernel(paths: dict, reps: int = 5) -> dict:
 def ssm_work(b: int, t: int, di: int, n: int, dtype: str) -> dict:
     """Operations and bytes one selective-scan call needs, and its bound.
     Bytes: x and dt read and y written in ``dtype``, bm, cm and a read and
-    the final h written in f32, each once.  Operations: per state element
-    and step dt*a, exp(.)*h, (dt x)*b, +, c*h and the sum over N (6), per
-    channel and step dt*x (1), all f32; the exponentials are counted
-    apart (``exps``), on the special-function units."""
+    the final h written in f32, each once.  Operations: the kernel
+    module's ``flops`` (per state element and step dt*a, exp(.)*h,
+    (dt x)*b, +, c*h and the sum over N (6), per channel and step dt*x
+    (1), all f32), the count the dry run adds for each call; the
+    exponentials are counted apart (``exps``), on the special-function
+    units."""
+    from repro_torch.kernels.ssm_scan.kernel import flops
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * 3 * b * t * di + 4 * (2 * b * t * n + di * n
                                            + b * di * n)
-    ops = 6 * b * t * di * n + b * t * di
+    ops = flops(b, t, di, n)                 # the dry run's count
     ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"ops": ops, "exps": b * t * di * n, "bytes": nbytes,
@@ -1359,7 +1414,7 @@ def phase_ssm_kernel(paths: dict, reps: int = 5) -> dict:
     special-function floor at falcon-mamba-7b's shapes and at each path
     shape, each also by its device time alone (``_device_ms``), and where
     the launch rule chunks T, the same call unchunked.  ``paths``: {name:
-    (cfg, launcher)}.
+    (cfg, [(B, T, prefill calls)])}.
 
     ``SSM_LONG`` with a drawn as in ``tests/test_kernels.py`` (some a
     within 1e-4 of 0: memories longer than T) is held on h (2e-4) and bf16
@@ -1379,9 +1434,9 @@ def phase_ssm_kernel(paths: dict, reps: int = 5) -> dict:
     checks = [(case, dtype, False) for case in shapes + [SSM_LONG]
               for dtype in ("float32", "bfloat16")]
     checks.append((SSM_LONG, "float32", True))
-    for cfg, launcher in paths.values():
+    for cfg, calls in paths.values():
         checks += [((b, t, cfg.d_inner, cfg.ssm.d_state), "float32", False)
-                   for b, t, _ in prefill_calls(launcher)]
+                   for b, t, _ in calls]
     max_err = {"y_float32": 0.0, "y_bfloat16": 0.0, "h": 0.0}
     long_f32 = {}
     for (b, t, di, n), dtype, model_a in checks:
@@ -1447,9 +1502,8 @@ def phase_ssm_kernel(paths: dict, reps: int = 5) -> dict:
            "shapes": [timed(b, t, *SSM_TIMED_WIDTHS)
                       for b, t in TIMED_SHAPES]}
     rows = {name: [(timed(b, t, cfg.d_inner, cfg.ssm.d_state),
-                    calls * cfg.n_layers)
-                   for b, t, calls in prefill_calls(launcher)]
-            for name, (cfg, launcher) in paths.items()}
+                    n * cfg.n_layers) for b, t, n in calls]
+            for name, (cfg, calls) in paths.items()}
     res["paths"] = {name: _sum_path(r, "float32")
                     for name, r in rows.items()}
     res["path"] = _sum_path([x for r in rows.values() for x in r],
@@ -1472,19 +1526,19 @@ def _state_bytes_equal(a, b) -> bool:
 
 
 def _round_breakdown(trainer) -> dict:
-    """Host-clock ms of one unit's parts on a trained session (second of
-    two calls, synchronised): the gradient, its quorum hash (device to
-    host copy + blake2b) and the optimizer step."""
+    """Host-clock ms of one unit's parts on a trained session, whose
+    rounds have warmed each of them (one synchronised call each): the
+    gradient, its quorum hash (device to host copy + blake2b) and the
+    optimizer step."""
     import torch
 
     from repro_torch.core.elastic import grad_hash
 
     def timed(fn):
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
         return out, (time.perf_counter() - t) * 1e3
 
     batch = trainer.stream.batch(0)
@@ -1519,6 +1573,16 @@ def _finite(state) -> bool:
     from repro_torch import tree as tu
     return all(bool(torch.isfinite(x).all()) for x in tu.leaves(state)
                if x.is_floating_point())
+
+
+def _manifests(snaps) -> list:
+    """A snapshot manager's manifests in order, as JSON, but the clock."""
+    out = []
+    for sid in snaps.order:
+        m = json.loads(snaps.manifests[sid].to_json())
+        m.pop("created")
+        out.append(m)
+    return out
 
 
 def phase_train(cfg, workdir: Path) -> dict:
@@ -1559,8 +1623,11 @@ def phase_train(cfg, workdir: Path) -> dict:
     check(_state_bytes_equal(restored, sess.trainer.state),
           "restore of the diff snapshot != live state")
     peaks["restore"] = _peak_gb()
+    inline_manifests = _manifests(sess.snaps)
     del restored, sess
     _release()
+    seconds = {"inline": time.perf_counter() - t0}
+    t = time.perf_counter()
 
     args_r = train.parse_args(["--steps", "1", "--snapshot-every", "1",
                                "--outdir", outdir, "--resume"])
@@ -1575,13 +1642,34 @@ def phase_train(cfg, workdir: Path) -> dict:
     peaks["resume_2"] = _peak_gb()
     del restored, sess
     _release()
+    seconds["resume"], t = time.perf_counter() - t, time.perf_counter()
 
-    args_b = train.parse_args(["--steps", "5", "--snapshot-every", "0"])
+    # uninterrupted, with the zero-stall writer: the round pays only the
+    # probe and the copy; its snapshots (rounds 2 and 4) must be the
+    # inline drive's
+    args_b = train.parse_args(["--steps", "5", "--snapshot-every", "2",
+                               "--outdir", str(workdir / "async"),
+                               "--async-writer"])
     sess = train.build_trainer(cfg, args_b)
     sum_b = train.train(sess, args_b)
-    peaks["train_6_no_snapshots"] = _peak_gb()
+    check(_manifests(sess.snaps) == inline_manifests,
+          "async-writer manifests != the inline drive's")
+    async_diff = sess.snaps.last_info
+    peaks["train_5_async_writer"] = _peak_gb()
+    del sess
+    _release()
+    seconds["async_writer"], t = time.perf_counter() - t, time.perf_counter()
+
+    # without snapshots: the rounds alone; its losses must be the inline
+    # drive's first ones
+    args_d = train.parse_args(["--steps", str(NO_SNAPSHOT_ROUNDS),
+                               "--snapshot-every", "0"])
+    sess = train.build_trainer(cfg, args_d)
+    sum_d = train.train(sess, args_d)
+    peaks[f"train_{NO_SNAPSHOT_ROUNDS}_no_snapshots"] = _peak_gb()
     launches = fused_delta_tiles.launches
     res["main_path_s"] = time.perf_counter() - t0
+    seconds["no_snapshots"] = time.perf_counter() - t
     res["round_ms"] = _round_breakdown(sess.trainer)
     del sess
     _release()
@@ -1593,14 +1681,17 @@ def phase_train(cfg, workdir: Path) -> dict:
           f"first loss {losses[0]} vs ln V {math.log(cfg.vocab_size)}")
     check(losses == sum_b["losses"],
           f"resumed losses {losses} != uninterrupted {sum_b['losses']}")
-    check(launches_a == per_diff and launches == per_diff,
+    check(sum_d["losses"] == losses[:NO_SNAPSHOT_ROUNDS],
+          f"losses without snapshots {sum_d['losses']} != {losses}")
+    check(launches_a == per_diff and launches == 2 * per_diff,
           f"kernel launches {launches_a}/{launches}, expected {per_diff} "
-          "for the one diff snapshot")
+          f"for the one diff snapshot of each of the inline and the "
+          f"async-writer drives")
     res.update({
         "losses": losses, "losses_bit_exact": True, "restore_exact": True,
         "launches": launches, "launches_per_diff_snapshot": per_diff,
         "tokens_per_s_with_snapshots": sum_a["tokens_per_s"],
-        "tokens_per_s_no_snapshots": sum_b["tokens_per_s"],
+        "tokens_per_s_no_snapshots": sum_d["tokens_per_s"],
         "diff_snapshot": {
             "kernel_ms": stats_a["kernel_ms"], "d2h_ms": stats_a["d2h_ms"],
             "probe_bytes": stats_a["probe_bytes"],
@@ -1608,7 +1699,17 @@ def phase_train(cfg, workdir: Path) -> dict:
             "plan_ms": diff_info.plan_ms, "stall_ms": diff_info.stall_ms,
             "bound_ms": (stats_a["probe_bytes"] + stats_a["d2h_bytes"])
             / HBM_BYTES_PER_S * 1e3},
-        "peak_mem_gb": peaks,
+        "async_writer": {
+            "manifests_equal_inline": True,
+            "snapshot_stall_ms": sum_b["snapshot_stall_ms"],
+            "inline_snapshot_stall_ms": sum_a["snapshot_stall_ms"],
+            "diff_stall_ms": async_diff.stall_ms,
+            "diff_plan_ms": async_diff.plan_ms,
+            "diff_writer_ms": async_diff.writer_ms,
+            "inline_diff_stall_ms": diff_info.stall_ms,
+            "tokens_per_s": sum_b["tokens_per_s"],
+            "writer": sum_b.get("snapshot_writer")},
+        "peak_mem_gb": peaks, "seconds": seconds,
     })
     emit(res)
     return res
@@ -1747,8 +1848,8 @@ def _uplink_unit(trainer, reps: int = 5) -> dict:
 
 
 def _planes_drive(cfg, workdir: Path) -> dict:
-    """``PLANE_FLAGS`` with ``--telemetry`` at 2 layers: 2 rounds with a
-    snapshot every round, a base then a diff (the probe's counter must
+    """``PLANE_FLAGS`` with ``--telemetry`` at ``PLANES_LAYERS``: 2 rounds
+    with a snapshot every round, a base then a diff (the probe's counter must
     show the diff snapshot); a fresh ``--resume``, whose state must equal
     the first run's live state byte for byte, restored again through the
     edge tier (``restore_latest(client_hashes=set())``: the route must
@@ -2033,12 +2134,10 @@ def _checked(fn, flag):
     return step
 
 
-def _isolated(cfg, run, params, prompt, n_new, max_len, forced=None,
-              frames=None):
+def _isolated(cfg, run, params, prompt, n_new, max_len, frames=None):
     """Greedy batch-1 generation outside the engine; -> (the greedy token
-    at each position, the logits that chose it).  With ``forced``, those
-    tokens are fed instead of the greedy ones (teacher forcing); an
-    encoder-decoder's prefill also takes the request's ``frames``."""
+    at each position, the logits that chose it).  An encoder-decoder's
+    prefill also takes the request's ``frames``."""
     import torch
 
     from repro_torch.models import api
@@ -2051,21 +2150,23 @@ def _isolated(cfg, run, params, prompt, n_new, max_len, forced=None,
     logits = [lg[0]]
     out = [int(torch.argmax(lg[0, :cfg.vocab_size]))]
     for i in range(n_new - 1):
-        fed = out[-1] if forced is None else forced[i]
         lg, caches = decode(params, caches, {
-            "tokens": torch.tensor([[fed]], device="cuda"),
+            "tokens": torch.tensor([[out[-1]]], device="cuda"),
             "index": len(prompt) + i})
         logits.append(lg[0, 0])
         out.append(int(torch.argmax(lg[0, 0, :cfg.vocab_size])))
     return out, torch.stack(logits)
 
 
-def _trace(fn, top: int = 10) -> dict:
+def _trace(fn, top: int = 10, cross_check: bool = False) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host wall time, device
     time summed over kernels, the busy share (device / wall; the
     profiler's own host cost lowers it), the number of kernels and of
     host-side aten ops (nested ones included), and the kernels that took
-    most device time."""
+    most device time.  The numbers are read off the profiler's raw events
+    (``_event_counts``), as ``key_averages`` would give them in many
+    times the host time; with ``cross_check`` they are held against
+    ``key_averages``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2076,18 +2177,78 @@ def _trace(fn, top: int = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = prof.key_averages()
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms if wall_ms else None,
-            "kernel_launches": sum(e.count for e in kernels),
-            "aten_ops": sum(e.count for e in rows
-                            if e.device_type == DeviceType.CPU
-                            and e.key.startswith("aten::")),
-            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                    for e in kernels[:top]]}
+    t0 = time.perf_counter()
+    device_us, launches, aten_ops, by_name = _event_counts(prof)
+    res = {"wall_ms": wall_ms, "device_ms": device_us / 1e3,
+           "busy_share": device_us / 1e3 / wall_ms if wall_ms else None,
+           "kernel_launches": launches, "aten_ops": aten_ops,
+           "top": [[k[:80], us / 1e3, n] for k, (us, n) in sorted(
+               by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:top]],
+           "read_s": time.perf_counter() - t0}
+    if cross_check:
+        rows = prof.key_averages()
+        kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
+        want = (sum(e.count for e in kernels),
+                sum(e.count for e in rows if e.device_type == DeviceType.CPU
+                    and e.key.startswith("aten::")))
+        want_us = sum(e.self_device_time_total for e in kernels)
+        check((launches, aten_ops) == want
+              and math.isclose(device_us, want_us, rel_tol=1e-9),
+              f"trace: raw events give {launches} kernels, {aten_ops} aten "
+              f"ops, {device_us} us; key_averages {want}, {want_us} us")
+        res["cross_checked"] = True
+    return res
+
+
+def _event_counts(prof) -> tuple:
+    """(device us, device events, aten ops, {kernel: (us, count)}) of a
+    finished ``torch.profiler.profile``, from its raw events, counted as
+    ``key_averages`` counts them: the profiler's utility ops left out,
+    async events out of the host nesting, and an op whose only child on
+    its thread is the same op (a redispatch) counted once."""
+    import itertools
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import _filter_name
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not _filter_name(e.name())
+              and not getattr(e, "is_hidden_event", lambda: False)()]
+    device_us, launches, by_name = 0.0, 0, {}
+    host = []
+    for e in events:
+        sync = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        if e.device_type() == DeviceType.CPU:
+            if sync:
+                host.append((e.start_thread_id(), e.start_ns(), -e.end_ns(),
+                             e.name()))
+        elif e.device_type() == DeviceType.CUDA:
+            us = (e.end_ns() - e.start_ns()) / 1e3 if sync else 0.0
+            device_us += us
+            launches += 1
+            t, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + us, n + 1)
+    # each host op's parent: the innermost op on its thread whose interval
+    # holds it (ops sorted by start, the longer first)
+    host.sort()
+    parent, children = [None] * len(host), [0] * len(host)
+    for _, group in itertools.groupby(range(len(host)),
+                                      key=lambda i: host[i][0]):
+        stack = []
+        for i in group:
+            start, end = host[i][1], -host[i][2]
+            while stack and (start >= -host[stack[-1]][2]
+                             or end > -host[stack[-1]][2]):
+                stack.pop()
+            if stack:
+                parent[i] = stack[-1]
+                children[stack[-1]] += 1
+            stack.append(i)
+    aten_ops = sum(
+        1 for i, (_, _, _, name) in enumerate(host)
+        if name.startswith("aten::") and not (
+            parent[i] is not None and host[parent[i]][3] == name
+            and children[parent[i]] == 1))
+    return device_us, launches, aten_ops, by_name
 
 
 @contextlib.contextmanager
@@ -2199,23 +2360,20 @@ def _serve_engine(cfg, params, run, kernels: dict, expected: dict) -> tuple:
     return res, prompts, by_id
 
 
-def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
-                  later_tokens: bool) -> dict:
-    """(c) each engine request against isolated batch-1 generation, and
-    one request's prefill and decode logits against ``lm.forward_train``
-    (the twins: ``blocked_attention``, the chunked associative scan).
-    Batched decode is not batch-invariant on cuBLAS, so later tokens are
-    only counted (with ``later_tokens``): free-running (one flip changes
-    every later token) and teacher-forced (fed the engine's tokens, each
-    position on its own)."""
+def _serve_checks(cfg, run, params, prompts, by_id,
+                  forward_tol: float) -> dict:
+    """(c) each engine request's first token against an isolated batch-1
+    prefill's, and one request's prefill and decode logits against
+    ``lm.forward_train`` (the twins: ``blocked_attention``, the chunked
+    associative scan).  Batched decode is not batch-invariant on cuBLAS,
+    so later tokens are not compared."""
     import torch
 
     res = {}
     check_i = ENGINE_PROMPTS.index(1024)
-    agree = forced_agree = total = 0
     for i, prompt in enumerate(prompts):
         mine = by_id[i].output
-        n_new = ENGINE_NEW[i] if later_tokens or i == check_i else 1
+        n_new = ENGINE_NEW[i] if i == check_i else 1
         out, logits = _isolated(cfg, run, params, prompt, n_new,
                                 ENGINE_MAX_LEN)
         check(bool(torch.isfinite(logits).all()),
@@ -2225,16 +2383,6 @@ def _serve_checks(cfg, run, params, prompts, by_id, forward_tol: float,
               f"prefill's {out[0]}")
         if i == check_i:
             check_out, check_logits = out, logits
-        if later_tokens:
-            agree += sum(a == b for a, b in zip(out[1:], mine[1:]))
-            forced, _ = _isolated(cfg, run, params, prompt, ENGINE_NEW[i],
-                                  ENGINE_MAX_LEN, forced=mine)
-            forced_agree += sum(a == b for a, b in zip(forced[1:], mine[1:]))
-            total += len(out) - 1
-    if later_tokens:
-        res["later_tokens_agree_with_isolated"] = {
-            "free_running": agree / total,
-            "teacher_forced": forced_agree / total, "positions": total}
     prompt = prompts[check_i]
     gap = _twin_gap(cfg, run, params, prompt, check_out, check_logits)
     if cfg.is_moe:
@@ -2315,7 +2463,8 @@ def _serve_trace(cfg, run, params, prompt, frames=None) -> dict:
             box["lg"], box["caches"] = decode(
                 params, box["caches"],
                 {"tokens": tok, "index": len(prompt) + j})
-    return {"prefill_T%d" % len(prompt): _trace(do_prefill),
+    return {"prefill_T%d" % len(prompt): _trace(do_prefill,
+                                                 cross_check=True),
             "decode_8_steps_B1": _trace(do_decode)}
 
 
@@ -2336,8 +2485,7 @@ def per_prefill(cfg) -> dict:
             "ssm_scan": cfg.n_layers * (cfg.family in ("ssm", "hybrid"))}
 
 
-def _serve(cfg, launcher: bool, forward_tol: float,
-           later_tokens: bool) -> dict:
+def _serve(cfg, launcher: bool, forward_tol: float) -> dict:
     """One configuration through the serving path: (a) the launcher (or,
     without it, ``build_server`` alone for the params), (b) the engine,
     (c) the checks, (d) the trace.  Each kernel's counter must read one
@@ -2348,6 +2496,7 @@ def _serve(cfg, launcher: bool, forward_tol: float,
     kernels, per_call = _path_kernels(), per_prefill(cfg)
     res = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "dtype": "bfloat16"}
+    seconds, t = {}, time.perf_counter()
     if launcher:
         res["launcher"], params, run = _serve_launcher(cfg, kernels,
                                                        per_call)
@@ -2359,13 +2508,19 @@ def _serve(cfg, launcher: bool, forward_tol: float,
         res["params"] = sum(p.numel() for p in tu.leaves(params))
         res["build_peak_gb"] = _peak_gb()
         del server
+    seconds["launcher" if launcher else "build"], t = \
+        time.perf_counter() - t, time.perf_counter()
     res["engine"], prompts, by_id = _serve_engine(
         cfg, params, run, kernels,
         {k: n * len(ENGINE_PROMPTS) for k, n in per_call.items()})
-    res.update(_serve_checks(cfg, run, params, prompts, by_id, forward_tol,
-                             later_tokens))
+    seconds["engine"], t = time.perf_counter() - t, time.perf_counter()
+    res.update(_serve_checks(cfg, run, params, prompts, by_id,
+                             forward_tol))
+    seconds["checks"], t = time.perf_counter() - t, time.perf_counter()
     res["trace"] = _serve_trace(cfg, run, params,
                                 prompts[ENGINE_PROMPTS.index(1024)])
+    seconds["trace"] = time.perf_counter() - t
+    res["seconds"] = seconds
     del params
     _release()
     return res
@@ -2382,8 +2537,7 @@ def phase_serve(cfg, forward_tol: float = 0.1) -> dict:
     the card).  A wrong head mapping, mask or cache row moves logits by
     their whole scale."""
     res = {"phase": "serve"}
-    res.update(_serve(cfg, launcher=True, forward_tol=forward_tol,
-                      later_tokens=True))
+    res.update(_serve(cfg, launcher=True, forward_tol=forward_tol))
     emit(res)
     return res
 
@@ -2393,12 +2547,10 @@ def phase_serve_ssm(falcon, hymba, forward_tol: float = 0.1) -> dict:
     hymba-1.5b through the engine, both at full width.  ``forward_tol`` as
     for granite: the scan is f32 on both routes (sequential in the kernel,
     associative in the twin), so what differs is the bf16 rounding of the
-    activations around it, over 64 and 32 layers.  Later tokens are not
-    counted here (granite's phase counts them): isolated generation runs
-    only where a check needs it."""
+    activations around it, over 64 and 32 layers."""
     res = {"phase": "serve_ssm",
-           falcon.name: _serve(falcon, True, forward_tol, False),
-           hymba.name: _serve(hymba, False, forward_tol, False)}
+           falcon.name: _serve(falcon, True, forward_tol),
+           hymba.name: _serve(hymba, False, forward_tol)}
     emit(res)
     return res
 
@@ -2407,11 +2559,11 @@ def phase_serve_moe(cfg, forward_tol: float = 0.1) -> dict:
     """deepseek-moe-16b through the launcher and the engine at full width,
     with ``phase_serve``'s checks (first tokens against isolated
     prefills, logits against the twin within ``forward_tol`` of their
-    scale; later tokens not counted).  Each prefill layer is one
+    scale).  Each prefill layer is one
     attention launch; the MoE block runs no kernel of the port (the
     reference's has none)."""
     res = {"phase": "serve_moe",
-           cfg.name: _serve(cfg, True, forward_tol, False)}
+           cfg.name: _serve(cfg, True, forward_tol)}
     emit(res)
     return res
 
@@ -2530,6 +2682,159 @@ def phase_encdec(cfg, forward_tol: float = 0.1) -> dict:
     return res
 
 
+# -------------------------------------------------------------- cells
+def cell_shape(name: str):
+    """``SHAPES[name]`` cut to ``CELL_SHAPES``' (B, T)."""
+    from repro_torch.configs.base import SHAPES
+    b, t = CELL_SHAPES[name]
+    return dataclasses.replace(SHAPES[name], global_batch=b, seq_len=t)
+
+
+def phase_cells(cfg) -> dict:
+    """``launch.cell.build_cell`` on the card for each kind at
+    ``CELL_SHAPES`` (granite-3-2b at full width, ``CELL_LAYERS`` layers,
+    the dry run's ``RunConfig``): the step run ``CELL_RUNS`` times (a
+    train step on the state it returned, a decode step at the same
+    index), its outputs finite, its time, and the peak device memory of
+    the build and the first step (the cell's arguments, outputs and
+    temporaries; eager PyTorch donates nothing, so a train step holds the
+    old state beside the new) against the dry run's bytes for the same
+    cell, traced on meta
+    (``dryrun.cell_bytes``, ``flop_analysis``).  The peak must hold at
+    least the cell's arguments.  The prefills' flash-attention launches,
+    counted from 0 over the phase's steps, must read CELL_RUNS x layers;
+    the kernel phase times them (path ``cells``)."""
+    import torch
+
+    from repro_torch import tree as tu
+    from repro_torch.launch import flop_analysis
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.dryrun import cell_bytes
+    from repro_torch.models.lm import RunConfig
+    run = RunConfig()
+    kernels = _path_kernels()
+    res = {"phase": "cells", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "run": {"remat": run.remat, "compute_dtype": "bfloat16"},
+           "cells": {}}
+
+    def drive():
+        for name in CELL_SHAPES:
+            shape = cell_shape(name)
+            _release()
+            torch.cuda.reset_peak_memory_stats()
+            cell = build_cell(cfg, shape, "cuda", run)
+            args, ms = cell.args, []
+            for i in range(CELL_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.step(*args)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:      # the build and one step: what a cell needs
+                    peak = torch.cuda.max_memory_allocated()
+                if cell.kind == "train":
+                    args = (out[0], args[1])
+            check(all(bool(torch.isfinite(x).all())
+                      for x in tu.leaves(out) if x.is_floating_point()),
+                  f"cells: {name} output not finite")
+            del cell, args, out
+            meta = build_cell(cfg, shape, "meta", run)
+            t0 = time.perf_counter()
+            flops = flop_analysis.traced_flops(meta.step, *meta.args)
+            trace_s = time.perf_counter() - t0
+            nbytes = cell_bytes(cfg, shape, run)
+            mem = flop_analysis.memory_dict(meta, run)
+            check(peak >= mem["argument_size_in_bytes"],
+                  f"cells: {name} peak {peak} B under its arguments' "
+                  f"{mem['argument_size_in_bytes']} B")
+            res["cells"][name] = {
+                "B": shape.global_batch, "T": shape.seq_len,
+                "kind": meta.kind, "step_ms": ms,
+                "peak_bytes": peak, "dryrun_bytes": nbytes,
+                "peak_over_dryrun_total": peak / nbytes["total"],
+                "memory_analysis": mem, "traced_flops": flops,
+                "trace_s": trace_s,
+                "tflops_per_s": flops / (ms[-1] / 1e3) / 1e12}
+            del meta
+
+    _, res["launches"] = _launched(kernels, drive)
+    _release()
+    _check_launches("cells", res["launches"],
+                    {"flash_attention": CELL_RUNS * cfg.n_layers,
+                     "ssm_scan": 0})
+    emit(res)
+    return res
+
+
+# ----------------------------------------------------------- examples
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_arches() -> dict:
+    """The configs the examples run: quickstart's and serve_capsule's."""
+    from repro_torch.configs.base import get_arch, reduced
+    return {"torch_quickstart": reduced(get_arch("granite-3-2b")),
+            "torch_serve_capsule": reduced(get_arch("falcon-mamba-7b"))}
+
+
+def phase_examples() -> dict:
+    """``examples/torch_*.py`` at ``device="cuda"``, each passing its own
+    asserts (the loss falls by 0.5 under the faulty fleet; the base
+    disk's re-snapshot stores 0 new bytes; task A resumes bit for bit;
+    pause and unpause keep the caches).  Every kernel counter is set to 0
+    just before and read just after: quickstart's diff snapshots must
+    launch ``fused_delta_tiles`` once per size bucket of its state
+    (``QUICKSTART_DIFFS`` snapshots), serve_capsule's prefill ``ssm_scan``
+    once per layer, and project_switch none (its one re-snapshot finds
+    the base params untouched).  The kernel phases time these launches
+    (path ``examples``)."""
+    import torch
+
+    from repro_torch.kernels.delta_encode.kernel import fused_delta_tiles
+    kernels = {"fused_delta_tiles": fused_delta_tiles, **_path_kernels()}
+    mods = {name: _example(name) for name in EXAMPLES}
+    res = {"phase": "examples", "runs": {}}
+
+    def drive():
+        for name, mod in mods.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mod.main(device="cuda")
+            torch.cuda.synchronize()
+            res["runs"][name] = {"wall_s": time.perf_counter() - t0}
+            if name == "torch_quickstart":
+                losses = [h.loss for h in out.history]
+                res["runs"][name].update(
+                    first_loss=losses[0], last_loss=losses[-1],
+                    snapshots=len(out.snapshots.order),
+                    invalid=sum(h.invalid for h in out.history))
+            elif name == "torch_project_switch":
+                res["runs"][name]["disks"] = [dataclasses.asdict(d)
+                                              for d in out.disks()]
+            else:
+                res["runs"][name]["tokens"] = out.tolist()
+
+    _, res["launches"] = _launched(kernels, drive)
+    arches = example_arches()
+    expected = {
+        "fused_delta_tiles": QUICKSTART_DIFFS
+        * len(path_launches(arches["torch_quickstart"])),
+        "flash_attention": 0,
+        "ssm_scan": SERVE_CAPSULE_PREFILL[2]
+        * arches["torch_serve_capsule"].n_layers}
+    _check_launches("examples", res["launches"], expected)
+    _release()
+    emit(res)
+    return res
+
+
 def full_width(arch: str, n_layers: int):
     """The registered config, only ``n_layers`` cut (0 keeps them all):
     ``reduced`` would also shrink d_state, dt_rank and the experts."""
@@ -2570,8 +2875,6 @@ def main(argv=None) -> int:
                          "each (0: all 12 of seamless-m4t-medium)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout)
     cfg = granite_full_width(args.layers)
     serve_cfg = granite_full_width(args.serve_layers)
     falcon = full_width("falcon-mamba-7b", args.ssm_layers)
@@ -2580,11 +2883,27 @@ def main(argv=None) -> int:
     seamless = full_width(ENCDEC_ARCH, args.encdec_layers)
     families = [(full_width(arch, n), flags)
                 for arch, n, flags in FAMILY_DRIVES]
-    # the serve drives whose prefills launch each kernel: (cfg, launcher)
-    attn_paths = {"serve": (serve_cfg, True), "serve_ssm": (hymba, False),
-                  "serve_moe": (deepseek, True), "encdec": (seamless, True)}
-    ssm_paths = {"serve_ssm": (falcon, True), "serve_ssm_hybrid":
-                 (hymba, False)}
+    cells_cfg = granite_full_width(CELL_LAYERS)
+    examples = example_arches()
+    # the drives whose prefills launch each kernel: the serve drives (with
+    # the launcher or not), the cells phase's prefills and serve_capsule's
+    b, t = CELL_SHAPES["prefill_32k"]
+    attn_paths = {
+        **{name: (c, attn_groups(c, launcher)) for name, (c, launcher) in (
+            ("serve", (serve_cfg, True)), ("serve_ssm", (hymba, False)),
+            ("serve_moe", (deepseek, True)), ("encdec", (seamless, True)))},
+        "cells": (cells_cfg, [("prefill", b, t, t, True,
+                               CELL_RUNS * cells_cfg.n_layers)])}
+    ssm_paths = {"serve_ssm": (falcon, prefill_calls(True)),
+                 "serve_ssm_hybrid": (hymba, prefill_calls(False)),
+                 "examples": (examples["torch_serve_capsule"],
+                              [SERVE_CAPSULE_PREFILL])}
+    # the drives whose diff snapshots launch the probe: (cfg, snapshots):
+    # the train phase's inline and async-writer drives, the hybrid's, and
+    # quickstart's
+    probe_paths = {"train": (cfg, 2), "train_families": (families[0][0], 1),
+                   "examples": (examples["torch_quickstart"],
+                                QUICKSTART_DIFFS)}
 
     def in_tmp(phase, *a):
         workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -2610,26 +2929,27 @@ def main(argv=None) -> int:
     phase_gpu()
     run("build", phase_build)
     # the train drives whose diff snapshot launches the probe
-    kern = run("kernel", phase_kernel,
-               {"train": cfg, "train_families": families[0][0]})
+    kern = run("kernel", phase_kernel, probe_paths)
     attn = run("attn_kernel", phase_attn_kernel, attn_paths)
     tr = run("train", in_tmp, phase_train, cfg)
     up = run("train_uplink", in_tmp, phase_train_uplink, cfg,
-             granite_full_width(2))
+             granite_full_width(PLANES_LAYERS))
     fam = run("train_families", phase_train_families, families)
     sv = run("serve", phase_serve, serve_cfg)
     sv_moe = run("serve_moe", phase_serve_moe, deepseek)
     en = run("encdec", phase_encdec, seamless)
+    cl = run("cells", phase_cells, cells_cfg)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
+    ex = run("examples", phase_examples)
     # last, as standalone users run them: outside the train launcher's
     # deterministic mode, which fills every new allocation, outputs included
     with _nondeterministic():
         dops = run("delta_ops", phase_delta_ops, cfg)
         sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
-    if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, en, ssm,
-                sv_ssm):
+    if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, en, cl,
+                ssm, sv_ssm, ex):
         return 0
     # the launches counted on each main path's run, against the launches
     # each kernel phase timed
@@ -2643,12 +2963,14 @@ def main(argv=None) -> int:
             "serve_moe": sv_moe[d_name]["launcher"]["launches"]
             ["flash_attention"]
             + sv_moe[d_name]["engine"]["launches"]["flash_attention"],
-            "encdec": en["serve"]["launches"]["flash_attention"]},
+            "encdec": en["serve"]["launches"]["flash_attention"],
+            "cells": cl["launches"]["flash_attention"]},
         "ssm_scan": {
             "serve_ssm": sv_ssm[f_name]["launcher"]["launches"]["ssm_scan"]
             + sv_ssm[f_name]["engine"]["launches"]["ssm_scan"],
             "serve_ssm_hybrid": sv_ssm[h_name]["engine"]["launches"]
-            ["ssm_scan"]}}
+            ["ssm_scan"],
+            "examples": ex["launches"]["ssm_scan"]}}
     for name, timed in (("flash_attention", attn["paths"]),
                         ("ssm_scan", ssm["paths"])):
         for path, n in runs[name].items():
@@ -2656,19 +2978,20 @@ def main(argv=None) -> int:
                   f"{name}: {path} launched {n} times, "
                   f"{timed[path]['launches']} timed")
 
-    # the probe's main paths: the diff snapshots' launches of the train
-    # and train_families drives (timed by the kernel phase) and the
-    # uplink's, one unit's image shapes timed per unit that diffed
+    # the probe's main paths: the diff snapshots' launches of the train,
+    # train_families and examples drives (timed by the kernel phase) and
+    # the uplink's, one unit's image shapes timed per unit that diffed
     snap = kern["paths"]
-    for path, n in (("train", tr["launches"]),
-                    ("train_families", fam["launches"])):
+    probe_runs = {"train": tr["launches"], "train_families": fam["launches"],
+                  "examples": ex["launches"]["fused_delta_tiles"]}
+    for path, n in probe_runs.items():
         check(n == snap[path]["launches"],
               f"fused_delta_tiles: {path} launched {n} times, "
               f"{snap[path]['launches']} timed")
     unit = up["unit"]["kernel"]
     emit({"kernels": [
         _kernel_row("fused_delta_tiles", SOURCE, REPLACES,
-                    tr["launches"] + fam["launches"] + up["launches"],
+                    sum(probe_runs.values()) + up["launches"],
                     kern["max_abs_err"], {
                         key: sum(p[key] for p in snap.values())
                         + up["diffed_units"] * unit[key]

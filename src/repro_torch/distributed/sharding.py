@@ -1,12 +1,20 @@
 """Tensor specs and seeded initialisation (``repro.distributed.sharding``).
 
-Only the mesh-free part of the reference lives here: ``TensorSpec`` (shape,
-logical axes, dtype, init rule), ``stack_specs`` and ``init_tree``.  The
-logical-axis → mesh resolver and ``constrain`` wait for the port's
-multi-card slice; on one card every tensor is whole.
+The mesh-free part of the reference: ``TensorSpec`` (shape, logical axes,
+dtype, init rule), ``stack_specs``, ``init_tree``, ``abstract_tree`` (a
+spec tree as tensors on the ``meta`` device, the counterpart of the
+reference's ``ShapeDtypeStruct`` trees) and ``param_bytes``.
+
+The reference's logical-axis resolver has no counterpart: on one card
+every tensor is whole, so there is no mesh to resolve ``ShardingRules``
+against, no rule table for ``use_rules``/``current_rules`` to install,
+and nothing for ``constrain`` to bind (the reference's ``constrain`` is
+the identity outside a mesh, which is what the port's model code does
+by not calling it).  ``abstract_tree`` takes no rules for that reason.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -57,3 +65,18 @@ def stack_specs(spec_tree, n: int, axis_name: Optional[str] = None):
     def st(s: TensorSpec):
         return TensorSpec((n,) + s.shape, (axis_name,) + s.axes, s.dtype, s.init)
     return tu.tree_map(st, spec_tree)
+
+
+def abstract_tree(spec_tree):
+    """TensorSpec tree -> tensors of the same shapes and dtypes on the
+    ``meta`` device: no storage, so a full-width cell's state costs
+    nothing to build and a step run on it only traces."""
+    return tu.tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        spec_tree)
+
+
+def param_bytes(spec_tree) -> int:
+    """Bytes of every tensor a spec tree describes."""
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in tu.leaves(spec_tree))

@@ -12,7 +12,11 @@ the same function as masking the rest); a CUDA tensor launches the
 hand-written kernel in ``csrc/flash_attention.cu`` (built with ``nvcc`` at
 first use into ``build/`` beside this file, bound through ``ctypes``) or
 raises.  There is no fallback from the card to the plain version, and
-no backward on either route.
+no backward on either route.  A meta tensor (the dry run,
+``repro_torch.launch.dryrun``) computes nothing: that route returns an
+empty output of the kernel's shape and dtype and adds the call's
+operations (``flops``, the same count ``chip_smoke.py`` bounds the kernel
+by) to ``flash_attention.meta_flops``.  Any other device raises.
 
 The kernel reads q, k and v and writes o through their batch, head and
 row strides, so strided views (the model's (B, T, H, hd) tensors seen as
@@ -102,6 +106,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return s_valid
 
 
+def flops(b: int, h: int, t: int, s: int, hd: int, causal: bool) -> int:
+    """Operations of one call over ``s`` valid keys: Q·Kᵀ and P·V, 2 each
+    per (query, key) pair and head dim; causal query i sees keys
+    0 .. min(i, s - 1)."""
+    if not causal:
+        pairs = t * s
+    elif t <= s:
+        pairs = t * (t + 1) // 2
+    else:
+        pairs = s * (s + 1) // 2 + (t - s) * s
+    return 4 * b * h * hd * pairs
+
+
 def _readable(x: torch.Tensor) -> bool:
     """Whether the kernel can read ``x`` in place: hd contiguous, base and
     every stride of a dimension longer than 1 a positive multiple of 16
@@ -158,6 +175,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         res = attention_ref(q, k[:, :, :s_valid], v[:, :, :s_valid],
                             causal=causal)
         return res if out is None else out.copy_(res)
+    if q.device.type == "meta":
+        b, h, t, hd = q.shape
+        flash_attention.meta_flops += flops(b, h, t, s_valid, hd, causal)
+        return torch.empty_like(q) if out is None else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     q, k, v = _operand(q), _operand(k), _operand(v)
@@ -187,3 +208,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.meta_flops = 0

@@ -12,7 +12,13 @@ The tensor's device picks the route: a CPU tensor takes the plain PyTorch
 version (``ref.ssm_scan_ref``); a CUDA tensor launches the hand-written
 kernel in ``csrc/ssm_scan.cu`` (built with ``nvcc`` at first use into
 ``build/`` beside this file, bound through ``ctypes``) or raises.  There
-is no fallback from the card to the plain version.
+is no fallback from the card to the plain version.  A meta tensor (the
+dry run, ``repro_torch.launch.dryrun``) computes nothing: that route
+returns empty outputs of the kernel's shapes and dtypes and adds the
+call's operations (``flops``, the same count ``chip_smoke.py`` bounds the
+kernel by) to ``ssm_scan.meta_flops``; it never runs the plain version's
+per-step loop, which at T = 524,288 would take minutes on the host.  Any
+other device raises.
 
 ``plan`` is the launch rule: how many lanes of a warp share one channel's
 states, and whether T is cut into chunks that run side by side (two CUDA
@@ -175,6 +181,13 @@ def _check(x, dt, bm, cm, a) -> None:
                          f"{cm.device}, {a.device})")
 
 
+def flops(b: int, t: int, di: int, n: int) -> int:
+    """Operations of one call, all float32: per state element and step
+    dt*a, exp(.)*h, (dt x)*b, +, c*h and the sum over N (6), per channel
+    and step dt*x (1).  The exponential is one of the six."""
+    return 6 * b * t * di * n + b * t * di
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
              cm: torch.Tensor, a: torch.Tensor, *,
              return_state: bool = False):
@@ -183,9 +196,14 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     _check(x, dt, bm, cm, a)
     if x.device.type == "cpu":
         return ssm_scan_ref(x, dt, bm, cm, a, return_state=return_state)
+    b, t, di = x.shape
+    if x.device.type == "meta":
+        ssm_scan.meta_flops += flops(b, t, di, bm.shape[-1])
+        y = torch.empty_like(x)
+        h = x.new_empty((b, di, bm.shape[-1]), dtype=torch.float32)
+        return (y, h) if return_state else y
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for device {x.device}")
-    b, t, di = x.shape
     y, h = launch(x, dt, bm, cm, a, plan(b, t, di, bm.shape[-1],
                                          _sm_count(x.device.index or 0)))
     if h.numel():
@@ -194,6 +212,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
 
 
 ssm_scan.launches = 0
+ssm_scan.meta_flops = 0
 
 
 def launch(x, dt, bm, cm, a, how: Plan) -> tuple:

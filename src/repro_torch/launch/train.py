@@ -19,8 +19,10 @@ server's chunk store as delta refs (the image diffed on the card);
 ``--compress-grads``, ``--replicas N``, ``--edge-caches N``, ``--shards
 N`` with ``--rebalance`` and ``--telemetry DIR`` work as in the reference
 launcher.  ``--preset full`` keeps the assigned architecture and refuses
-here.  ``--arch`` takes any decoder-only family: dense, MoE
-(deepseek-moe-16b, qwen3-moe-30b-a3b), SSM (falcon-mamba-7b) and hybrid
+here, pointing to the dry run (``python -m repro_torch.launch.dryrun``),
+which traces it at full width on the meta device.  ``--arch`` takes any
+decoder-only family: dense, MoE (deepseek-moe-16b, qwen3-moe-30b-a3b),
+SSM (falcon-mamba-7b) and hybrid
 (hymba-1.5b); an encoder–decoder (seamless-m4t-medium) is refused up
 front, since the token stream yields no frames (the reference's launcher
 fails on them at its first unit).
@@ -157,9 +159,9 @@ def check_ported(args: argparse.Namespace,
     need frames that ``TokenStream`` does not yield; the reference's
     launcher stops on the missing frames at its first unit."""
     if args.preset == "full":
-        raise SystemExit("--preset full is TPU-scale; the port runs "
-                         "reduced presets, or a config passed to "
-                         "build_trainer")
+        raise SystemExit("--preset full is TPU-scale; trace its cells "
+                         "with python -m repro_torch.launch.dryrun, or "
+                         "pass a cut config to build_trainer")
     cfg = cfg or get_arch(args.arch)
     if cfg.enc_dec:
         raise SystemExit(f"{cfg.name} is an encoder-decoder: the launcher's "

@@ -109,7 +109,7 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     Non-causal self-attention with rotary over frame positions.  With
     ``kernel`` (prefill) each layer's attention is one flash-attention
     launch; without it (training) the ``blocked_attention`` twin, under
-    ``torch.utils.checkpoint`` where ``run.remat`` != "none"."""
+    ``torch.utils.checkpoint`` with ``run.remat_policy()``."""
     x = frames.to(run.compute_dtype)
     positions = _positions(x)
     enc_params = cast_tree(params["enc_layers"], run.compute_dtype)
@@ -124,10 +124,12 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
                                      causal=False)
         return _mlp(cfg, lp, x + a)
 
+    policy = None if kernel else run.remat_policy()
     for i in range(cfg.n_layers):
         lp = _layer(enc_params, i)
-        if run.remat != "none" and not kernel:
-            x = checkpoint(body, x, lp, use_reentrant=False)
+        if policy is not None:
+            x = checkpoint(body, x, lp, use_reentrant=False,
+                           context_fn=policy)
         else:
             x = body(x, lp)
     return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
@@ -184,10 +186,12 @@ def forward_train(params: dict, cfg: ArchConfig, frames: torch.Tensor,
                               _cross_kv(lp["cross_attn"], enc_out))
         return _mlp(cfg, lp, x)
 
+    policy = run.remat_policy()
     for i in range(cfg.n_layers):
         lp = _layer(dec_params, i)
-        if run.remat != "none":
-            x = checkpoint(body, x, lp, use_reentrant=False)
+        if policy is not None:
+            x = checkpoint(body, x, lp, use_reentrant=False,
+                           context_fn=policy)
         else:
             x = body(x, lp)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -12,11 +12,14 @@ An MoE block's metrics (aux and z-losses, drop fraction) come back from
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
@@ -39,16 +42,47 @@ def cast_tree(tree, dtype):
     return tu.tree_map(c, tree)
 
 
+# the matrix products ``remat="dots"`` keeps (``einsum``, ``matmul`` and
+# ``linear`` lower to these), as the reference's ``checkpoint_dots``
+# keeps every ``dot_general``
+_DOTS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm,
+                   torch.ops.aten.bmm, torch.ops.aten.baddbmm})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """Execution knobs.  ``remat`` != "none" recomputes each layer in the
-    backward pass (``torch.utils.checkpoint``).  The reference's mesh
-    knobs come with the slice that uses them."""
+    backward pass (``torch.utils.checkpoint``), keeping what
+    ``remat_policy`` says.
+
+    The reference's mesh knobs have no counterpart on one card:
+    ``logical_rules`` overrides a sharding rule table and
+    ``fsdp_gather_weights`` (with ``gather_weights``) gathers each layer's
+    FSDP-sharded weights before use; here every weight is whole.  The
+    capsule manifest writes both at the reference's defaults."""
     remat: str = "full"              # none | full | dots
     block_kv: int = 1024
     ssm_chunk: int = 256
     capacity_factor: float = 1.25
     compute_dtype: Any = torch.bfloat16
+
+    def remat_policy(self):
+        """-> the ``context_fn`` each layer's ``checkpoint`` takes, or None
+        for no remat: "full" saves nothing (every op of the layer runs
+        again in the backward pass); "dots" saves the matrix products'
+        outputs and recomputes the rest, as the reference's
+        ``checkpoint_dots``."""
+        if self.remat == "none":
+            return None
+        if self.remat == "dots":
+            return functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots)
+        return noop_context_fn
 
 
 # ---------------------------------------------------------------------------
@@ -172,11 +206,13 @@ def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     def body(x, lp):
         return _block_train(cfg, run, lp, x, positions, causal)
 
+    policy = run.remat_policy()
     per_layer = []
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
-        if run.remat != "none":
-            x, metrics = checkpoint(body, x, lp, use_reentrant=False)
+        if policy is not None:
+            x, metrics = checkpoint(body, x, lp, use_reentrant=False,
+                                    context_fn=policy)
         else:
             x, metrics = body(x, lp)
         per_layer.append(metrics)

@@ -886,3 +886,85 @@ def test_encdec_train_step_on_the_card_matches_cpu(deterministic):
         assert g.device.type == "cuda", key
         torch.testing.assert_close(g.cpu(), w, rtol=2e-5,
                                    atol=2e-5 * float(w.abs().max()))
+
+
+# ------------------------------------------------------- launch tooling
+def test_build_cell_on_the_card_matches_cpu(deterministic):
+    """A reduced granite-3-2b train cell built on the card: its step against
+    the same cell built on the CPU from the same state, loss and updated
+    params within 1e-5 (``tests/test_torch_model.py``'s tolerance)."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES, get_arch, reduced
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.models.lm import RunConfig
+    cfg = reduced(get_arch("granite-3-2b"))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=32,
+                                global_batch=2)
+    run = RunConfig(remat="dots", compute_dtype=torch.float32)
+    cpu = build_cell(cfg, shape, "cpu", run)
+    card = build_cell(cfg, shape, deterministic, run)
+    assert all(t.device.type == "cuda" for t in tu.leaves(card.args))
+    state = tu.tree_map(lambda t: t.to(deterministic), cpu.args[0])
+    got, gm = card.step(state, card.args[1])
+    want, wm = cpu.step(*cpu.args)
+    torch.testing.assert_close(gm["loss"].cpu(), wm["loss"], rtol=1e-5,
+                               atol=0.0)
+    for g, w in zip(tu.leaves(got.params), tu.leaves(want.params),
+                    strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])
+def test_meta_route_gives_the_card_cells_shapes(cuda, arch):
+    """A reduced prefill cell traced on meta gives the logits and caches of
+    the same cell run on the card, shape for shape and dtype for dtype,
+    and its kernels' meta counts equal the launches' formula counts."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES, get_arch, reduced
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssm_scan import kernel as ss
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.flop_analysis import traced_flops
+    cfg = reduced(get_arch(arch))
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=40,
+                                global_batch=2)
+    card = build_cell(cfg, shape, cuda)
+    meta = build_cell(cfg, shape, "meta")
+    launches = (flash_attention.launches, ssm_scan.launches)
+    out = card.step(*card.args)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - launches[0] == cfg.n_layers
+    assert ssm_scan.launches - launches[1] == (
+        cfg.n_layers if cfg.family == "hybrid" else 0)
+    before = (fa.flash_attention.meta_flops, ss.ssm_scan.meta_flops)
+    assert traced_flops(meta.step, *meta.args) > 0
+    shapes = [(tuple(t.shape), t.dtype) for t in tu.leaves(out)]
+    assert shapes == [(tuple(t.shape), t.dtype)
+                      for t in tu.leaves(meta.step(*meta.args))]
+    b, t = shape.global_batch, shape.seq_len
+    # traced once and run once more on meta: twice the per-call counts
+    assert fa.flash_attention.meta_flops - before[0] == 2 * cfg.n_layers \
+        * fa.flops(b, cfg.n_heads, t, t, cfg.resolved_head_dim, True)
+    if cfg.family == "hybrid":
+        assert ss.ssm_scan.meta_flops - before[1] == 2 * cfg.n_layers \
+            * ss.flops(b, t, cfg.d_inner, cfg.ssm.d_state)
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_project_switch",
+                                  "torch_serve_capsule"])
+def test_examples_raise_without_a_card(name, monkeypatch):
+    """Without ``--device`` an example runs on the card, and with none
+    found it stops rather than carry on on the CPU (no card needed: the
+    check sees ``torch.cuda.is_available`` return False)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main()

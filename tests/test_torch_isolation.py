@@ -10,6 +10,7 @@ with only their imports re-pointed.
 from __future__ import annotations
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,10 +35,16 @@ def test_port_imports_load_no_jax_and_no_reference():
     assert "repro_torch.kernels.delta_encode.kernel" in mods
     assert "repro_torch.moe.moe" in mods
     assert "repro_torch.models.encdec" in mods
+    assert "repro_torch.launch.dryrun" in mods
+    examples = [str(p) for p in sorted((ROOT / "examples")
+                                       .glob("torch_*.py"))]
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({examples!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'repro.'))\n"
         "             or m == 'repro')\n"
@@ -61,8 +68,17 @@ def _imported_names(path: Path) -> set:
     return names
 
 
+# the examples written for the port, beside the reference's
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def test_no_source_names_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert [p.name for p in EXAMPLES] == [
+        "torch_project_switch.py", "torch_quickstart.py",
+        "torch_serve_capsule.py"]
+    assert {"cell", "dryrun", "flop_analysis", "mesh"} <= {
+        p.stem for p in (PORT / "launch").glob("*.py")}
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -107,3 +123,38 @@ def test_copied_module_equals_the_reference(rel):
     differ = {i + 1 for i, (a, b) in enumerate(zip(got, want)) if a != b}
     assert differ == REWORDED.get(rel, set())
     assert differ <= _docstring_lines((PORT / rel).read_text())
+
+
+# import names whose distribution on PyPI is named otherwise
+DISTRIBUTIONS = {"ml_dtypes": "ml-dtypes"}
+
+
+def _requirement_names(path: Path) -> set:
+    names = set()
+    for line in path.read_text().splitlines():
+        line = line.split("#")[0].strip()
+        if line and not line.startswith("-"):
+            names.add(re.split(r"[\[<>=!~; ]", line)[0].lower()
+                      .replace("_", "-"))
+    return names
+
+
+def test_ci_installs_what_the_tests_import():
+    """CI's test job runs ``pip install -r requirements.txt`` and then the
+    tests: every third-party package that ``tests/*.py``, ``src/**/*.py``
+    or ``chip_smoke.py`` imports (at any depth) must be named there, or
+    pytest stops at collection."""
+    files = sorted((ROOT / "tests").glob("*.py")) \
+        + sorted((ROOT / "src").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    local = {p.stem for p in (ROOT / "tests").glob("*.py")} | {
+        p.name for p in (ROOT / "src").iterdir()} | {"chip_smoke"}
+    third_party = set()
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            if top not in sys.stdlib_module_names and top not in local:
+                third_party.add(top)
+    assert {"torch", "jax", "numpy", "pytest"} <= third_party
+    wanted = {DISTRIBUTIONS.get(n, n).lower().replace("_", "-")
+              for n in third_party}
+    assert wanted <= _requirement_names(ROOT / "requirements.txt")

@@ -275,6 +275,24 @@ def test_serve_launcher_runs_on_the_cpu():
     assert flash_attention.launches == before
 
 
+def test_serve_launcher_samples_at_a_temperature():
+    """``--temperature 0.8`` draws from a ``torch.Generator`` seeded with
+    ``--seed``: finite logits, every token inside the vocabulary, the same
+    tokens for one seed twice and other tokens for another seed."""
+    def sample(seed):
+        return serve.main(["--device", "cpu", "--arch", "qwen2-1.5b",
+                           "--requests", "3", "--prompt-len", "8", "--gen",
+                           "12", "--temperature", "0.8", "--seed",
+                           str(seed)])
+    out = sample(3)
+    vocab = serve.reduced(serve.get_arch("qwen2-1.5b")).vocab_size
+    tokens = np.asarray(out["tokens"])
+    assert out["logits_finite"] and tokens.shape == (3, 12)
+    assert tokens.min() >= 0 and tokens.max() < vocab
+    assert sample(3)["tokens"] == out["tokens"]
+    assert sample(4)["tokens"] != out["tokens"]
+
+
 def test_serve_launcher_refuses_to_fall_back_to_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -43,6 +43,18 @@ SSM_CASES = [(2, 64, 256, 16), (1, 50, 130, 8), (3, 32, 128, 16),
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel and no plain
+    route (the wrappers read only ``device.type``)."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*xs) -> tuple:
+    return tuple(torch.Tensor._make_subclass(_Elsewhere, x) for x in xs)
+
+
 def _inputs(case, seed=0):
     """``test_kernels.py``'s distribution: dt small and positive, a < 0."""
     b, t, di, n = case
@@ -159,7 +171,7 @@ def test_mismatched_devices_raise():
 
 def test_device_without_a_kernel_raises():
     with pytest.raises(ValueError, match="no kernel for device"):
-        ssm_scan(*_small(device="meta"))
+        ssm_scan(*_elsewhere(*_small()))
 
 
 # ------------------------------------------------------ the launch rule
