@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,delta_ops
     python3 chip_smoke.py --phases build,sprint
     python3 chip_smoke.py --phases build,cells,examples
+    python3 chip_smoke.py --phases build,attn_kernel,mesh
 
 Phases, each printing one JSON line:
 
@@ -143,7 +144,24 @@ Phases, each printing one JSON line:
    meta device (``launch.dryrun``, ``launch.flop_analysis``).  The
    prefills' flash-attention launches are counted (one per layer and
    call).
-12. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
+12. ``mesh``: the sharding layer, in two parts.  (a) On the card: an
+   NCCL group of one and a (1, 1) ("data", "model") ``DeviceMesh``, and
+   the cells phase's three cells built on it (every argument a DTensor,
+   each step inside the rules): each step run ``CELL_RUNS`` times, its
+   first outputs equal to the same cell built on ``"cuda"`` bit for bit,
+   both step times, and the prefill's flash-attention launches counted
+   on each (``CELL_RUNS`` x layers, the kernel on each rank's shard);
+   then a capsule booted on the mesh (``"1x1:data,model"``) restores an
+   unsharded snapshot of the train cell's state onto it bit for bit and
+   steps it, equal to the capsule booted on the card.  (b) On the card's
+   host, meanwhile: the dry run (``launch.dryrun``, meta DTensors over
+   the ``fake`` backend) of granite-3-2b's ``train_4k``, ``prefill_32k``
+   and ``decode_32k`` on ``single_pod`` and ``train_4k`` on
+   ``multi_pod``, one process each, all started together: each ok, its
+   per-device bytes finite, and each train cell's collective bytes above
+   0; each cell's bytes per device, fit in 80 GB, collective seconds,
+   dominant term and trace seconds are reported.
+13. ``ssm_kernel``: ``ssm_scan`` against its plain PyTorch version on the
    card, y and the final state h, in f32 (2e-4) and bf16 (2e-2 for y), on
    ``tests/test_kernels.py``'s ``SSM_CASES`` (N 4 to 16, ragged T and
    Di), on the design's edges (N 1, 5, 24 and 32; T 1; Di no multiple of
@@ -157,7 +175,7 @@ Phases, each printing one JSON line:
    every prefill shape of the serve_ssm phase, each row with its launch
    plan (lanes per channel, time chunks, CUDA kernels a call) and, where
    it chunks, the time of the same call unchunked.
-13. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
+14. ``serve_ssm``: falcon-mamba-7b (d_model 4096, d_inner 8192, N 16,
    vocab 65024) at all 64 layers in bf16 through the launcher and the
    engine as in ``serve``, then hymba-1.5b (d_model 1600, 25 heads, 5 KV
    heads, d_inner 3200, N 16) at all 32 layers through the engine, with
@@ -165,12 +183,12 @@ Phases, each printing one JSON line:
    (``forward_train``: the chunked associative scan).  The scan's counter
    must read 64 and 512 for falcon and 256 for hymba, and the attention
    kernel's none for falcon and 256 for hymba.
-14. ``examples``: ``examples/torch_quickstart.py``,
+15. ``examples``: ``examples/torch_quickstart.py``,
    ``torch_project_switch.py`` and ``torch_serve_capsule.py`` at
    ``device="cuda"``, each passing its own asserts; quickstart's diff
    snapshots must launch ``fused_delta_tiles`` once per size bucket of
    its state, serve_capsule's prefill ``ssm_scan`` once per layer.
-15. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
+16. ``delta_ops``: the one-shot delta API's kernels (``changed_bitmap``,
    ``delta_encode``, ``delta_apply``) against their plain versions, bit
    for bit, on the ``kernel`` phase's leaves and patterns; a
    ``diff_blocks`` -> ``patch_blocks`` round trip that restores the exact
@@ -185,7 +203,7 @@ Phases, each printing one JSON line:
    ``delta_apply``, ``torch.bitwise_xor``, each of these two also by its
    device time alone (events around each call with the stream held busy
    ahead of them), shape by shape.
-16. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
+17. ``sprint``: the SPRINT correlation workload of the paper's Fig. 4 at
     its size, 11,000 genes x 321 samples (Load: made with numpy from seed
     0, moved to the card), Exec: two row-strip work units through the
     port's ``VolunteerScheduler`` on two volunteers, each strip from
@@ -291,7 +309,7 @@ SSM_TIMED_WIDTHS = (8192, 16)
 TIMED_SHAPES = [(b, t) for b in (1, 8) for t in (512, 1024, 2048)]
 PHASES = ("build", "kernel", "attn_kernel", "train", "train_uplink",
           "train_families", "serve", "serve_moe", "encdec", "cells",
-          "ssm_kernel", "serve_ssm", "examples", "delta_ops", "sprint")
+          "mesh", "ssm_kernel", "serve_ssm", "examples", "delta_ops", "sprint")
 # train_families: (arch, layers, launcher flags), each at its published
 # widths with only the depth cut; the first (the hybrid) snapshots
 FAMILY_DRIVES = (
@@ -312,6 +330,11 @@ CELL_LAYERS = 2
 CELL_SHAPES = {"train_4k": (2, 1024), "prefill_32k": (2, 2048),
                "decode_32k": (8, 2048)}
 CELL_RUNS = 2
+# the mesh phase's dry-run cells: (shape, mesh) of granite-3-2b at full
+# width and depth, each traced in a process of its own
+MESH_DRYRUN = (("train_4k", "single_pod"), ("prefill_32k", "single_pod"),
+               ("decode_32k", "single_pod"), ("train_4k", "multi_pod"))
+MESH_DRYRUN_TIMEOUT = 400
 # the train_uplink phase's planes drive: granite-3-2b's depth cut to this
 PLANES_LAYERS = 1
 # the train phase's drive without snapshots (training tokens/s alone)
@@ -2767,6 +2790,218 @@ def phase_cells(cfg) -> dict:
     return res
 
 
+# --------------------------------------------------------------- mesh
+def _start_dryruns(workdir: Path) -> list:
+    """The mesh phase's dry-run cells, each in a process of its own (CPU
+    only: meta DTensors over the ``fake`` backend), all started at once;
+    -> [(shape, mesh, process, log path)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = []
+    for shape, mesh_name in MESH_DRYRUN:
+        log = workdir / f"dryrun_{shape}_{mesh_name}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", "granite-3-2b", "--shape", shape, "--mesh",
+                 mesh_name, "--out", str(workdir / "dryrun")],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        started.append((shape, mesh_name, proc, log))
+    return started
+
+
+def _finish_dryruns(started: list, workdir: Path) -> dict:
+    """Wait for each dry-run process (killed past the timeout); check and
+    summarise its record."""
+    out = {}
+    deadline = time.monotonic() + MESH_DRYRUN_TIMEOUT
+    for shape, mesh_name, proc, log in started:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        path = workdir / "dryrun" / f"granite-3-2b__{shape}__{mesh_name}.json"
+        check(rc == 0 and path.exists(),
+              f"mesh: dry run of {shape} on {mesh_name} exited {rc}: "
+              f"{log.read_text()[-2000:]}")
+        rec = json.loads(path.read_text())
+        roof = rec["roofline"]
+        check(rec["status"] == "ok", f"mesh: dry run {shape} {mesh_name}: "
+              f"{rec.get('error')}")
+        check(all(math.isfinite(v) for v in rec["bytes"].values()),
+              f"mesh: dry run {shape} {mesh_name}: bytes {rec['bytes']}")
+        if shape == "train_4k":
+            check(roof["collective_output_bytes"] > 0,
+                  f"mesh: dry run {shape} {mesh_name} moved no collective "
+                  "bytes")
+        out[f"{shape}@{mesh_name}"] = {
+            "n_devices": rec["n_devices"],
+            "bytes_per_device": rec["bytes"], "fits_80gb": rec["fits_80gb"],
+            "collective_op_counts": roof["collective_op_counts"],
+            "collective_output_bytes": roof["collective_output_bytes"],
+            "collective_wire_bytes_per_device":
+                roof["collective_wire_bytes_per_device"],
+            "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+            "collective_s": roof["collective_s"],
+            "dominant": roof["dominant"], "trace_s": rec["trace_s"],
+            "traced_flops_global": rec["traced_flops_global"]}
+    return out
+
+
+def _local_leaves(tree) -> list:
+    """(path, tensor) of a tree, DTensors as their local tensors (on a
+    mesh of one, the whole)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as tu
+    return [(k, v.to_local() if isinstance(v, DTensor) else v)
+            for k, v in tu.flatten_with_keys(tree)]
+
+
+def _bit_diffs(got, want) -> dict:
+    """{path: max |difference|} of the leaves that are not bit for bit
+    equal (dtype and shape included)."""
+    import torch
+    g, w = _local_leaves(got), _local_leaves(want)
+    check([k for k, _ in g] == [k for k, _ in w], "mesh: output trees differ")
+    out = {}
+    for (key, a), (_, b) in zip(g, w):
+        if not torch.is_tensor(b):
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            same = a.shape == b.shape
+            out[key or "."] = float((a.double() - b.double()).abs().max()) \
+                if same and a.numel() else "shape/dtype"
+    return out
+
+
+def _mesh_cells(cfg, m, kernels: dict, device: str = "cuda") -> tuple:
+    """(a)'s cells: each kind on ``device`` and on the (1, 1) mesh of it;
+    -> ({kind: row}, the device train cell's state)."""
+    import torch
+
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.models.lm import RunConfig
+    run = RunConfig()
+    out = {}
+    for name in CELL_SHAPES:
+        shape = cell_shape(name)
+        row, firsts = {}, {}
+        for label, where in (("card", device), ("mesh", m)):
+            _release()
+            cell = build_cell(cfg, shape, where, run)
+
+            def drive():
+                args, ms, first = cell.args, [], None
+                for i in range(CELL_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = cell.step(*args)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:    # a decode cache is written in place
+                        first = [(k, v.clone()) for k, v in
+                                 _local_leaves(res)]
+                    if cell.kind == "train":
+                        args = (res[0], args[1])
+                return first, ms
+
+            (firsts[label], row[f"{label}_step_ms"]), \
+                row[f"{label}_launches"] = _launched(kernels, drive)
+            if label == "card":
+                state = cell.args[0] if cell.kind == "train" else None
+            del cell
+        diffs = _bit_diffs(dict(firsts["mesh"]), dict(firsts["card"]))
+        row["bit_equal"] = not diffs
+        row["diffs"] = diffs
+        check(not diffs, f"mesh: {name} on the (1, 1) mesh differs from "
+              f"the card's cell: {diffs}")
+        want = CELL_RUNS * cfg.n_layers if shape.kind == "prefill" else 0
+        for label in ("card", "mesh"):
+            _check_launches(f"mesh: {name} on the {label}",
+                            row[f"{label}_launches"],
+                            {"flash_attention": want, "ssm_scan": 0})
+        out[name] = row
+        if state is not None:
+            train_state = state
+    return out, train_state
+
+
+def _mesh_capsule(cfg, m, state, workdir: Path,
+                  device: str = "cuda") -> dict:
+    """A capsule booted on the (1, 1) mesh: an unsharded snapshot of
+    ``state`` restored onto it bit for bit, and one step equal to the
+    capsule booted on the card."""
+    import torch
+
+    from repro_torch.core import capsule
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.snapshots import SnapshotManager
+    from repro_torch.launch.cell import concrete_batch
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    spec = capsule.CapsuleSpec("granite-3-2b", "train_4k", RunConfig(),
+                               arch_override=cfg)
+    t0 = time.perf_counter()
+    booted = capsule.boot(spec, m)
+    boot_s = time.perf_counter() - t0
+    check(booted.device_desc == "1x1:data,model",
+          f"mesh: capsule on {booted.device_desc}")
+    sm = SnapshotManager(ChunkStore(workdir / "store"))
+    sm.snapshot(state, step=1)
+    specs = api.state_specs(cfg)
+    t0 = time.perf_counter()
+    placed, _ = sm.restore(target_tree=specs, device=device,
+                           rules=booted.rules)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diffs = _bit_diffs(placed, state)
+    check(not diffs, f"mesh: snapshot restored onto the mesh differs: "
+          f"{diffs}")
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             concrete_batch(cfg, cell_shape("train_4k")).items()}
+    new, loss = booted.step(placed, batch)
+    del placed
+    want_new, want_loss = capsule.boot(spec, device).step(state, batch)
+    step_diffs = _bit_diffs((new, loss), (want_new, want_loss))
+    check(not step_diffs, f"mesh: capsule step on the mesh differs: "
+          f"{step_diffs}")
+    return {"desc": booted.device_desc, "manifest_hash": spec.manifest_hash,
+            "boot_s": boot_s, "restore_s": restore_s,
+            "loss": float(want_loss), "bit_equal": True}
+
+
+def phase_mesh(cfg, workdir: Path) -> dict:
+    """The sharding layer on the card's (1, 1) mesh and, on its host, the
+    dry run on the production meshes (see the module's docstring)."""
+    from repro_torch.launch import mesh as mesh_mod
+    kernels = _path_kernels()
+    res = {"phase": "mesh", "arch": cfg.name, "layers": cfg.n_layers}
+    t0 = time.perf_counter()
+    started = _start_dryruns(workdir)
+    try:
+        with mesh_mod.process_group("nccl", 1):
+            m = mesh_mod.make_mesh((1, 1), ("data", "model"),
+                                   device_type="cuda")
+            res["cells"], state = _mesh_cells(cfg, m, kernels)
+            res["capsule"] = _mesh_capsule(cfg, m, state, workdir)
+            del state
+        res["card_s"] = time.perf_counter() - t0
+    finally:
+        for _, _, proc, _ in started:     # reaped below, or killed here
+            if res.get("card_s") is None and proc.poll() is None:
+                proc.kill()
+    _release()
+    res["dryrun"] = _finish_dryruns(started, workdir)
+    res["launches"] = {"flash_attention": sum(
+        row["mesh_launches"]["flash_attention"]
+        for row in res["cells"].values())}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
 # ----------------------------------------------------------- examples
 def _example(name: str):
     import importlib.util
@@ -2892,8 +3127,9 @@ def main(argv=None) -> int:
         **{name: (c, attn_groups(c, launcher)) for name, (c, launcher) in (
             ("serve", (serve_cfg, True)), ("serve_ssm", (hymba, False)),
             ("serve_moe", (deepseek, True)), ("encdec", (seamless, True)))},
-        "cells": (cells_cfg, [("prefill", b, t, t, True,
-                               CELL_RUNS * cells_cfg.n_layers)])}
+        **{name: (cells_cfg, [("prefill", b, t, t, True,
+                               CELL_RUNS * cells_cfg.n_layers)])
+           for name in ("cells", "mesh")}}
     ssm_paths = {"serve_ssm": (falcon, prefill_calls(True)),
                  "serve_ssm_hybrid": (hymba, prefill_calls(False)),
                  "examples": (examples["torch_serve_capsule"],
@@ -2939,6 +3175,7 @@ def main(argv=None) -> int:
     sv_moe = run("serve_moe", phase_serve_moe, deepseek)
     en = run("encdec", phase_encdec, seamless)
     cl = run("cells", phase_cells, cells_cfg)
+    ms = run("mesh", in_tmp, phase_mesh, cells_cfg)
     ssm = run("ssm_kernel", phase_ssm_kernel, ssm_paths)
     sv_ssm = run("serve_ssm", phase_serve_ssm, falcon, hymba)
     ex = run("examples", phase_examples)
@@ -2949,7 +3186,7 @@ def main(argv=None) -> int:
         sprint = run("sprint", phase_sprint)
     emit({"phase_seconds": seconds})
     if None in (kern, dops, sprint, attn, tr, up, fam, sv, sv_moe, en, cl,
-                ssm, sv_ssm, ex):
+                ms, ssm, sv_ssm, ex):
         return 0
     # the launches counted on each main path's run, against the launches
     # each kernel phase timed
@@ -2964,7 +3201,8 @@ def main(argv=None) -> int:
             ["flash_attention"]
             + sv_moe[d_name]["engine"]["launches"]["flash_attention"],
             "encdec": en["serve"]["launches"]["flash_attention"],
-            "cells": cl["launches"]["flash_attention"]},
+            "cells": cl["launches"]["flash_attention"],
+            "mesh": ms["launches"]["flash_attention"]},
         "ssm_scan": {
             "serve_ssm": sv_ssm[f_name]["launcher"]["launches"]["ssm_scan"]
             + sv_ssm[f_name]["engine"]["launches"]["ssm_scan"],

@@ -2,10 +2,11 @@
 
 A capsule is a hermetic, topology-free bundle: arch config + shape + run
 config + a content-addressed manifest.  "Compile your application on a single
-architecture" becomes *define once, instantiate on any volunteer device*:
-``boot(spec, device)`` builds the step functions for that device, measuring
-boot time (the paper's <20 s VM boot requirement maps to build+restore
-latency).
+architecture" becomes *define once, instantiate on any volunteer mesh*:
+``boot(spec, device_or_mesh)`` builds the step functions for one device
+or, on a ``DeviceMesh``, under the sharding rules resolved for that mesh,
+measuring boot time (the paper's <20 s VM boot requirement maps to
+build+restore latency).
 
 The manifest hash gives volunteers end-to-end integrity over what they run
 (the paper's trusted-application concern), and the V-BOINC *server*
@@ -24,18 +25,23 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, get_arch
 from repro_torch.core.chunkstore import sha256
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.kernels.delta_encode.ops import dtype_name
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.cell import cell_rules, with_rules
 from repro_torch.models import api
 from repro_torch.models.lm import RunConfig
 from repro_torch.optim import adamw
 
-# the reference's RunConfig knobs the port's lacks, at the reference's
-# defaults: they are part of the manifest and so of its hash
-REFERENCE_RUN_DEFAULTS = {"logical_rules": None,
-                          "fsdp_gather_weights": False}
+# the reference's RunConfig knobs, at the reference's defaults (the
+# port's own): they are part of the manifest and so of its hash
+REFERENCE_RUN_DEFAULTS = {
+    "logical_rules": RunConfig.logical_rules,
+    "fsdp_gather_weights": RunConfig.fsdp_gather_weights}
 
 
 @dataclass(frozen=True)
@@ -77,6 +83,7 @@ class BootedCapsule:
     apply_fn: Callable             # (state, grads) -> state (AdamW)
     boot_wall_s: float             # "VM boot time"
     device_desc: str
+    rules: Optional[ShardingRules] = None   # on a mesh: place state by
 
     def step(self, state, batch):
         """One optimizer step: -> (new state, loss)."""
@@ -84,18 +91,31 @@ class BootedCapsule:
         return self.apply_fn(state, grads), loss
 
 
-def boot(spec: CapsuleSpec, device, *,
+def boot(spec: CapsuleSpec, device_or_mesh, *,
          verify_hash: Optional[str] = None) -> BootedCapsule:
-    """Instantiate a capsule on ``device``.
+    """Instantiate a capsule on a device or a ``DeviceMesh`` (any
+    topology).
 
     ``verify_hash`` rejects a tampered capsule before any compute runs —
-    the volunteer-side trust check.  A ``cuda`` device needs a card."""
+    the volunteer-side trust check.  A ``cuda`` device needs a card.  On
+    a mesh the steps run under the rules ``launch.cell`` resolves for the
+    capsule's shape there, and take state placed by them (``rules``:
+    ``init_tree``/``restore`` with ``rules=``); ``device_desc`` is the
+    reference's ``mesh_desc``, e.g. "2x2:data,model"."""
     if verify_hash is not None and verify_hash != spec.manifest_hash:
         raise PermissionError("capsule manifest hash mismatch — refusing to "
                               "boot untrusted image")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available to boot the capsule on")
+    rules = None
+    if isinstance(device_or_mesh, DeviceMesh):
+        rules = cell_rules(device_or_mesh, spec.shape, spec.run)
+        desc = mesh_mod.mesh_desc(device_or_mesh)
+    else:
+        dev = torch.device(device_or_mesh)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available to boot the "
+                               "capsule on")
+        desc = str(dev) if dev.type != "cuda" \
+            else f"{dev}:{torch.cuda.get_device_name(dev)}"
     t0 = time.time()
     grad_fn = api.make_grad_fn(api.make_eval_loss(spec.arch, spec.run))
     oc = adamw.AdamWConfig()
@@ -104,6 +124,8 @@ def boot(spec: CapsuleSpec, device, *,
         p, o, _ = adamw.update(oc, grads, state.opt, state.params)
         return api.TrainState(p, o)
 
-    desc = str(dev) if dev.type != "cuda" \
-        else f"{dev}:{torch.cuda.get_device_name(dev)}"
-    return BootedCapsule(spec, grad_fn, apply_fn, time.time() - t0, desc)
+    if rules is not None:
+        grad_fn, apply_fn = (with_rules(f, rules) for f in (grad_fn,
+                                                             apply_fn))
+    return BootedCapsule(spec, grad_fn, apply_fn, time.time() - t0, desc,
+                         rules)

@@ -431,15 +431,19 @@ class SnapshotManager:
 
     # ------------------------------------------------------------------
     def restore(self, snapshot_id: Optional[str] = None, *,
-                target_tree=None, device="cpu"):
-        """Rebuild state on ``device``.
+                target_tree=None, device="cpu", rules=None):
+        """Rebuild state on ``device`` (optionally re-sharded onto a mesh).
 
         Returns (state, aux).  ``target_tree`` supplies the structure (any
         tree with the state's layout, e.g. ``api.state_specs(cfg)``);
         flattened key paths must match the manifest.  Without it the state
-        comes back as {keystr path: tensor}.  Handles v2 (delta-ref) and
-        v1 (hash-list) manifests alike; bfloat16 leaves are rebuilt from
-        their raw bytes, with no numpy bfloat16 type needed.
+        comes back as {keystr path: tensor}.  With ``rules`` (a
+        ``ShardingRules``; ``target_tree`` then a ``TensorSpec`` tree) each
+        leaf is distributed to its placements on the rules' mesh, whatever
+        mesh, if any, the snapshot was taken on (``device`` the mesh's).
+        Handles v2 (delta-ref) and v1 (hash-list) manifests alike;
+        bfloat16 leaves are rebuilt from their raw bytes, with no numpy
+        bfloat16 type needed.
         """
         self.wait()
         sid = snapshot_id or (self.order[-1] if self.order else None)
@@ -451,6 +455,9 @@ class SnapshotManager:
                   for key, ent in man.tensors.items()}
         if target_tree is None:
             return arrays, man.aux
+        if rules is not None:
+            arrays = {key: rules.distribute(arrays[key], spec) for key, spec
+                      in tu.flatten_with_keys(target_tree)}
         return tu.unflatten_like(target_tree, arrays), man.aux
 
     def load_existing(self) -> int:

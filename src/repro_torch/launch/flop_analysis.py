@@ -1,5 +1,5 @@
-"""Roofline terms of one cell on one card (the counterpart of
-``repro/launch/hlo_analysis.py``).
+"""Roofline terms of one cell on one card or a mesh of them (the
+counterpart of ``repro/launch/hlo_analysis.py``).
 
 The reference parses XLA's artifacts: matmul FLOPs from the lowered
 StableHLO (trip-count aware, so remat duplicates show), collective bytes
@@ -15,28 +15,42 @@ The port has no HLO, so it counts what eager PyTorch runs:
   module (``flops``), and ``traced_ops`` adds those in, by the peak they
   run at: the scan's float32 operations on the CUDA cores, everything
   else at the bf16 tensor-core peak (as the reference charges all its
-  HLO FLOPs).
+  HLO FLOPs).  A cell on a mesh counts the same global FLOPs:
+  ``FlopCounterMode`` sees each DTensor op at its global shapes, once,
+  and a kernel run on local shards scales its count to the shards
+  (``sharding.run_local``); the reference's count is the pre-SPMD global
+  one too, divided by the devices.
+* Collectives: ``traced_collectives`` (the counterpart of
+  ``parse_collectives``) runs the step under a dispatch mode that sees
+  every ``_c10d_functional`` collective DTensor issues and records its
+  output bytes and its group, the reference's wire factor turning those
+  into bytes each device sends; ``CollectiveStats.seconds()`` charges
+  each at its group's link rate (``mesh.link_bw``).
 * Bytes: ``memory_dict`` takes the argument, output and cache trees'
-  bytes from their specs (``param_bytes``) and the activations from the
-  cost model's inventory, in the reference's keys.
-* ``Roofline`` keeps the reference's fields (but ``coll``), properties and
+  bytes from their specs (``param_bytes``; on a mesh, one device's
+  shards) and the activations from the cost model's inventory (on a
+  mesh, divided as "act_batch" divides the batch), in the reference's
+  keys.
+* ``Roofline`` keeps the reference's fields, properties and
   ``summary()`` keys, against one H100's peak rates (``mesh``); the
   summary's ``hlo_flops_per_device`` holds the traced count, and
   ``fp32_flops_per_device`` the part of it ``compute_s`` charges at the
-  float32 peak.
-
-``parse_collectives`` and ``CollectiveStats`` have no single-card
-counterpart: nothing is sharded, so no collective runs and
-``collective_s`` is 0; the summary's collective keys read 0.
+  float32 peak.  Without ``coll`` (one card) ``collective_s`` is 0.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
+from typing import Optional
 
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.distributed.sharding import param_bytes
+from repro_torch.distributed.sharding import LOCAL_SHARDS, param_bytes
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan
 from repro_torch.launch import mesh as mesh_mod
@@ -54,7 +68,14 @@ def traced_ops(fn, *args) -> dict:
     before = [k.meta_flops for k, _ in _META_COUNTED]
     with FlopCounterMode(display=False) as counter:
         fn(*args)
-    ops = {"bfloat16": float(counter.get_total_flops()), "float32": 0.0}
+    total = counter.get_total_flops()
+    # a local call on a mesh (sharding.run_local) counted one shard's
+    # products of n: add the other n - 1
+    for name, counts in counter.get_flop_counts().items():
+        m = LOCAL_SHARDS.search(name)
+        if m:
+            total += (int(m.group(1)) - 1) * sum(counts.values())
+    ops = {"bfloat16": float(total), "float32": 0.0}
     for (k, dtype), b in zip(_META_COUNTED, before):
         ops[dtype] += k.meta_flops - b
     return ops
@@ -63,6 +84,104 @@ def traced_ops(fn, *args) -> dict:
 def traced_flops(fn, *args) -> float:
     """All of ``traced_ops``' FLOPs."""
     return sum(traced_ops(fn, *args).values())
+
+
+# bytes each device sends per output byte, by op and group size g (the
+# reference's table): a ring all-reduce sends 2 (g-1)/g of its output, an
+# all-gather (g-1)/g, a reduce-scatter (g-1) (its output is 1/g of what
+# it reduces), an all-to-all (g-1)/g, a permute its output
+_WIRE_FACTOR = {
+    "all-reduce": lambda g: 2 * (g - 1) / g,
+    "all-gather": lambda g: (g - 1) / g,
+    "reduce-scatter": lambda g: float(g - 1),
+    "all-to-all": lambda g: (g - 1) / g,
+    "collective-permute": lambda g: 1.0,
+}
+
+# the collectives DTensor issues, by the reference's op names
+_COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+
+
+@dataclass
+class CollectiveStats:
+    op_counts: dict = field(default_factory=dict)    # op -> count
+    op_bytes: dict = field(default_factory=dict)     # output bytes
+    wire_bytes_per_device: float = 0.0
+    link_seconds: float = 0.0    # each op's wire bytes at its group's rate
+
+    @property
+    def total_output_bytes(self) -> float:
+        return sum(self.op_bytes.values())
+
+    def add(self, op: str, nbytes: int, ranks) -> None:
+        g = len(ranks)
+        if not nbytes or g <= 1:
+            return
+        wire = _WIRE_FACTOR[op](g) * nbytes
+        self.op_counts[op] = self.op_counts.get(op, 0) + 1
+        self.op_bytes[op] = self.op_bytes.get(op, 0) + nbytes
+        self.wire_bytes_per_device += wire
+        self.link_seconds += wire / mesh_mod.link_bw(ranks)
+
+    def seconds(self) -> float:
+        """Each collective's wire bytes at its own group's link rate (the
+        reference charges all of them at one ICI link's)."""
+        return self.link_seconds
+
+
+class _CollectiveCounter(TorchDispatchMode):
+    """Records each collective a step issues.  A DTensor op is handed back
+    (``NotImplemented``) so that DTensor runs it and issues its
+    collectives on plain local tensors, which this mode then sees.
+    DTensor's shard-to-shard all-to-all is recorded as one, and what it
+    issues inside (on a CPU mesh, an all-gather it chunks) is not."""
+
+    def __init__(self, stats: CollectiveStats):
+        super().__init__()
+        self.stats = stats
+        self.inside = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        name = getattr(func, "_opname", "")
+        op = _COLLECTIVE_OPS.get(name) \
+            if func.namespace in ("_c10d_functional", "_dtensor") else None
+        if op is None or self.inside:
+            return func(*args, **(kwargs or {}))
+        self.inside += 1
+        try:
+            out = func(*args, **(kwargs or {}))
+        finally:
+            self.inside -= 1
+        group = dist.distributed_c10d._resolve_process_group(args[-1])
+        self.stats.add(op, out.numel() * out.element_size(),
+                       dist.get_process_group_ranks(group))
+        return out
+
+
+def traced_collectives(fn, *args) -> CollectiveStats:
+    """The collectives of one call ``fn(*args)``: count, output bytes and
+    wire bytes per device by op (the reference's ``parse_collectives``)."""
+    stats = CollectiveStats()
+    with _CollectiveCounter(stats):
+        fn(*args)
+    return stats
+
+
+def traced(fn, *args) -> tuple:
+    """One call ``fn(*args)`` -> (``traced_ops``, ``traced_collectives``)
+    from the same run."""
+    stats = CollectiveStats()
+    with _CollectiveCounter(stats):
+        ops = traced_ops(fn, *args)
+    return ops, stats
 
 
 def activation_bytes(cfg: ArchConfig, shape: ShapeConfig,
@@ -83,17 +202,28 @@ def activation_bytes(cfg: ArchConfig, shape: ShapeConfig,
     return 0.0
 
 
+def batch_shards(rules, shape: ShapeConfig) -> int:
+    """How many ways "act_batch" splits ``shape``'s batch under ``rules``
+    (1 without)."""
+    if rules is None:
+        return 1
+    spec = rules.spec_for(("act_batch",), (shape.global_batch,))
+    return math.prod(rules.extent(a) for a in spec[0])
+
+
 def memory_dict(cell, run: RunConfig) -> dict:
-    """The reference's memory-analysis keys for a ``Cell``: the argument
-    and output trees' bytes, the bytes the outputs take over from donated
-    arguments (the train state, a decode cache) and the activations
-    (``temp``).  There is no generated code to count."""
-    return {"argument_size_in_bytes": param_bytes(cell.arg_specs),
-            "output_size_in_bytes": param_bytes(cell.out_specs),
+    """The reference's memory-analysis keys for a ``Cell``, per device:
+    the argument and output trees' bytes, the bytes the outputs take over
+    from donated arguments (the train state, a decode cache) and the
+    activations (``temp``).  There is no generated code to count."""
+    rules = cell.rules
+    return {"argument_size_in_bytes": param_bytes(cell.arg_specs, rules),
+            "output_size_in_bytes": param_bytes(cell.out_specs, rules),
             "alias_size_in_bytes": param_bytes(
-                [cell.arg_specs[i] for i in cell.donated]),
+                [cell.arg_specs[i] for i in cell.donated], rules),
             "temp_size_in_bytes": int(activation_bytes(
-                cell.arch, cell.shape, run))}
+                cell.arch, cell.shape, run) / batch_shards(rules,
+                                                           cell.shape))}
 
 
 @dataclass
@@ -103,6 +233,7 @@ class Roofline:
     n_devices: int = 1
     model_flops_per_device: float = 0.0   # 6*N*D (2*N*D) + attention
     fp32_flops_per_device: float = 0.0    # of flops_per_device: CUDA cores
+    coll: Optional[CollectiveStats] = None
 
     @property
     def compute_s(self) -> float:
@@ -116,7 +247,7 @@ class Roofline:
 
     @property
     def collective_s(self) -> float:
-        return 0.0
+        return self.coll.seconds() if self.coll is not None else 0.0
 
     @property
     def dominant(self) -> str:
@@ -144,16 +275,17 @@ class Roofline:
             self.bound_s * mesh_mod.PEAK_FLOPS_BF16)
 
     def summary(self) -> dict:
+        coll = self.coll or CollectiveStats()
         return {
             "hlo_flops_per_device": self.flops_per_device,
             "fp32_flops_per_device": self.fp32_flops_per_device,
             "model_flops_per_device": self.model_flops_per_device,
             "useful_flops_ratio": self.useful_flops_ratio,
             "hbm_bytes_per_device": self.hbm_bytes_per_device,
-            "collective_output_bytes": 0.0,
-            "collective_wire_bytes_per_device": 0.0,
-            "collective_op_counts": {},
-            "collective_op_bytes": {},
+            "collective_output_bytes": coll.total_output_bytes,
+            "collective_wire_bytes_per_device": coll.wire_bytes_per_device,
+            "collective_op_counts": dict(coll.op_counts),
+            "collective_op_bytes": dict(coll.op_bytes),
             "compute_s": self.compute_s,
             "memory_s": self.memory_s,
             "collective_s": self.collective_s,

@@ -12,9 +12,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import TensorSpec
+from repro_torch.distributed.sharding import ACT, TensorSpec, constrain
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import (blocked_attention, decode_attention,
@@ -52,9 +53,9 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     dt = x.dtype
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(dt))
+    q = layers.heads_proj(x, p["wq"].to(dt))
+    k = layers.heads_proj(x, p["wk"].to(dt))
+    v = layers.heads_proj(x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -72,7 +73,8 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     out = blocked_attention(q, layers.repeat_kv(k, rep),
                             layers.repeat_kv(v, rep),
                             causal=causal, window=cfg.window)
-    return torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
+    return constrain(torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype)),
+                     ACT)
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -81,6 +83,10 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
     """Attention that also returns the layer's KV cache: causal (the
     decoder's prefill) or full (the encoder's, ``causal=False``)."""
     q, k, v = _qkv(p, x, cfg, positions)
+    # the kernel runs on each rank's rows: batch sharded, heads whole
+    q = constrain(q, ("act_batch", None, None, None))
+    k = constrain(k, ("act_batch", None, None, None))
+    v = constrain(v, ("act_batch", None, None, None))
     if cfg.window:
         rep = cfg.n_heads // cfg.n_kv_heads
         out = blocked_attention(q, layers.repeat_kv(k, rep),
@@ -89,7 +95,7 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
     else:
         out = attn_ops.attend(q, k, v, causal=causal)
     out = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
-    return out, KVCache(k, v)
+    return constrain(out, ACT), KVCache(k, v)
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor,
@@ -98,13 +104,23 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor,
     cast to the cache's dtype.
 
     The reference selects over the whole cache with a masked ``where``, a
-    workaround for its length-sharded cache under GSPMD.  On one card the
-    port writes the B rows in place instead: the cache ends up with the
-    same values, and the returned tensor is ``cache`` itself.
+    workaround for its length-sharded cache under GSPMD.  On one device
+    the port writes the B rows in place instead: the cache ends up with
+    the same values, and the returned tensor is ``cache`` itself.  A
+    DTensor cache (a cell on a mesh) takes the reference's select, copied
+    back in place: a row write at a run-time index on the length-sharded
+    dim has no local strategy, while the select keeps every shard's
+    update local and moves no byte.
 
     ``index``: () shared position, or (B,) per-sequence positions
     (continuous batching — each slot is at its own length).
     """
+    if isinstance(cache, DTensor):
+        pos = torch.arange(cache.shape[1], dtype=torch.int32,
+                           device=cache.device)[None, :, None, None]
+        idx = index if index.dim() == 0 else index[:, None, None, None]
+        return cache.copy_(torch.where(pos == idx, new.to(cache.dtype),
+                                       cache))
     b = cache.shape[0]
     rows = torch.arange(b, device=cache.device)
     cache[rows, index.long().expand(b)] = new[:, 0].to(cache.dtype)
@@ -119,6 +135,12 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: KVCache,
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     idx = index.expand(b) if index.dim() == 0 else index
     q, k, v = _qkv(p, x, cfg, idx[:, None])
+    # q is tiny: replicate it across the model axis so the scores keep
+    # the CACHE's len-sharding instead of resharding the cache onto q's
+    # head sharding
+    q = constrain(q, ("act_batch", None, None, None))
+    k = constrain(k, ("act_batch", None, None, None))
+    v = constrain(v, ("act_batch", None, None, None))
     k_cache = _cache_write(cache.k, k, index)
     v_cache = _cache_write(cache.v, v, index)
     rep = cfg.n_heads // cfg.n_kv_heads
@@ -126,4 +148,4 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig, cache: KVCache,
                            layers.repeat_kv(v_cache, rep), kv_len=idx + 1,
                            window=cfg.window)
     out = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
-    return out, KVCache(k_cache, v_cache)
+    return constrain(out, ACT), KVCache(k_cache, v_cache)

@@ -29,12 +29,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import TensorSpec, stack_specs
+from repro_torch.distributed.sharding import (ACT, TensorSpec, constrain,
+                                              stack_specs)
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models import attention, layers
 from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import (RunConfig, cast_tree, embed_tokens,
-                                   pad_cache, unembed)
+                                   pad_cache, recompute_under_rules, unembed)
 
 # encoder frames backing a decode-time cross-attention cache
 ENC_LEN_DECODE = 4096
@@ -110,7 +111,7 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     ``kernel`` (prefill) each layer's attention is one flash-attention
     launch; without it (training) the ``blocked_attention`` twin, under
     ``torch.utils.checkpoint`` with ``run.remat_policy()``."""
-    x = frames.to(run.compute_dtype)
+    x = constrain(frames.to(run.compute_dtype), ACT)
     positions = _positions(x)
     enc_params = cast_tree(params["enc_layers"], run.compute_dtype)
 
@@ -122,14 +123,14 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor,
         else:
             a = attention.attn_train(lp["attn"], xn, cfg, positions,
                                      causal=False)
-        return _mlp(cfg, lp, x + a)
+        return constrain(_mlp(cfg, lp, x + a), ACT)
 
     policy = None if kernel else run.remat_policy()
     for i in range(cfg.n_layers):
         lp = _layer(enc_params, i)
         if policy is not None:
             x = checkpoint(body, x, lp, use_reentrant=False,
-                           context_fn=policy)
+                           context_fn=recompute_under_rules(policy))
         else:
             x = body(x, lp)
     return layers.rms_norm(x, params["enc_norm"], cfg.rms_eps)
@@ -139,8 +140,8 @@ def _cross_kv(lp: dict, enc_out: torch.Tensor) -> KVCache:
     """The cross-attention's K and V of the encoder output: no rotary, no
     biases."""
     dt = enc_out.dtype
-    return KVCache(torch.einsum("btd,dhk->bthk", enc_out, lp["wk"].to(dt)),
-                   torch.einsum("btd,dhk->bthk", enc_out, lp["wv"].to(dt)))
+    return KVCache(layers.heads_proj(enc_out, lp["wk"].to(dt)),
+                   layers.heads_proj(enc_out, lp["wv"].to(dt)))
 
 
 def _cross_attend(lp: dict, xn: torch.Tensor, cfg: ArchConfig,
@@ -153,10 +154,13 @@ def _cross_attend(lp: dict, xn: torch.Tensor, cfg: ArchConfig,
     kernel on the unrepeated K/V; else (training) to the
     ``blocked_attention`` twin."""
     dt = xn.dtype
-    q = torch.einsum("btd,dhk->bthk", xn, lp["wq"].to(dt))
+    q = layers.heads_proj(xn, lp["wq"].to(dt))
     k, v = kv.k.to(dt), kv.v.to(dt)
     if kernel:
-        out = attn_ops.attend(q, k, v, causal=False)
+        # the kernel runs on each rank's rows: batch sharded, heads whole
+        rows = ("act_batch", None, None, None)
+        out = attn_ops.attend(constrain(q, rows), constrain(k, rows),
+                              constrain(v, rows), causal=False)
     else:
         rep = cfg.n_heads // cfg.n_kv_heads
         k, v = layers.repeat_kv(k, rep), layers.repeat_kv(v, rep)
@@ -166,7 +170,8 @@ def _cross_attend(lp: dict, xn: torch.Tensor, cfg: ArchConfig,
             out = layers.decode_attention(q, k, v, kv_len=kv_len)
         else:
             out = layers.blocked_attention(q, k, v, causal=False)
-    return torch.einsum("bthk,hkd->btd", out, lp["wo"].to(dt))
+    return constrain(torch.einsum("bthk,hkd->btd", out, lp["wo"].to(dt)),
+                     ACT)
 
 
 def forward_train(params: dict, cfg: ArchConfig, frames: torch.Tensor,
@@ -174,7 +179,7 @@ def forward_train(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     """Teacher-forced training forward.  frames: (B, S, D); tokens:
     (B, T) -> (logits (B, T, Vp), {})."""
     enc_out = encode(params, cfg, frames, run)
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     positions = _positions(x)
     dec_params = cast_tree(params["dec_layers"], run.compute_dtype)
 
@@ -184,18 +189,20 @@ def forward_train(params: dict, cfg: ArchConfig, frames: torch.Tensor,
         xc = layers.rms_norm(x, lp["ln_x"], cfg.rms_eps)
         x = x + _cross_attend(lp["cross_attn"], xc, cfg,
                               _cross_kv(lp["cross_attn"], enc_out))
-        return _mlp(cfg, lp, x)
+        return constrain(_mlp(cfg, lp, x), ACT)
 
     policy = run.remat_policy()
     for i in range(cfg.n_layers):
         lp = _layer(dec_params, i)
         if policy is not None:
             x = checkpoint(body, x, lp, use_reentrant=False,
-                           context_fn=policy)
+                           context_fn=recompute_under_rules(policy))
         else:
             x = body(x, lp)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed(params, cfg, x), {}
+    logits = constrain(unembed(params, cfg, x),
+                       ("act_batch", "act_seq", "act_vocab"))
+    return logits, {}
 
 
 def prefill(params: dict, cfg: ArchConfig, frames: torch.Tensor,
@@ -209,7 +216,7 @@ def prefill(params: dict, cfg: ArchConfig, frames: torch.Tensor,
     the cross-attention reads them, at any compute dtype, as in the
     reference."""
     enc_out = encode(params, cfg, frames, run, kernel=True)
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     positions = _positions(x)
     dec_params = cast_tree(params["dec_layers"], run.compute_dtype)
     per_layer = []
@@ -224,7 +231,7 @@ def prefill(params: dict, cfg: ArchConfig, frames: torch.Tensor,
                              _cross_kv(lp["cross_attn"], enc_out)))
         x = x + _cross_attend(lp["cross_attn"], xc, cfg, cross_kv,
                               kernel=True)
-        x = _mlp(cfg, lp, x)
+        x = constrain(_mlp(cfg, lp, x), ACT)
         per_layer.append({"self_kv": pad_cache(self_kv, max_len),
                           "cross_kv": cross_kv})
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
@@ -239,7 +246,7 @@ def decode_step(params: dict, cfg: ArchConfig, caches: dict,
     (B, 1); index: scalar current length, or (B,) per-sequence lengths.
     Returns (logits (B, 1, Vp), caches): the self cache is written in
     place at ``index``, the cross cache is returned untouched."""
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     dec_params = cast_tree(params["dec_layers"], run.compute_dtype)
     for i in range(cfg.n_layers):
@@ -251,6 +258,6 @@ def decode_step(params: dict, cfg: ArchConfig, caches: dict,
         x = x + a
         xc = layers.rms_norm(x, lp["ln_x"], cfg.rms_eps)
         x = x + _cross_attend(lp["cross_attn"], xc, cfg, cache["cross_kv"])
-        x = _mlp(cfg, lp, x)
+        x = constrain(_mlp(cfg, lp, x), ACT)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
     return unembed(params, cfg, x), caches

@@ -8,13 +8,16 @@ kernel; products that the reference asks to accumulate in float32
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import TensorSpec
+from repro_torch.distributed.sharding import (ACT, TensorSpec, constrain,
+                                              current_rules, run_local)
 
 NEG_INF = -1e30
 
@@ -30,7 +33,32 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate.to(x.dtype)) * (x @ w_up.to(x.dtype))
-    return h @ w_down.to(x.dtype)
+    return constrain(h @ w_down.to(x.dtype), ACT)
+
+
+def heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, T, D) by w (D, H, hd) -> (B, T, H, hd): ``einsum("btd,dhk->
+    bthk")``.
+
+    A DTensor takes the same product over w's flattened (H*hd) columns
+    and is placed before the columns are split into heads: heads over the
+    model axis where H divides its extent, else whole.  Left to itself the
+    product may split the flattened columns where H does not divide (8 KV
+    heads of 64 on a model axis of 16), and then cannot be unflattened."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("btd,dhk->bthk", x, w)
+    b, t = x.shape[:2]
+    d, h, hd = w.shape
+    w2 = w.reshape(d, h * hd)
+    # pins w2's gradient to w2's placements (a redistribute's backward
+    # returns its input's), so it too can be split back into heads
+    w2 = w2.redistribute(w2.device_mesh, w2.placements)
+    y = torch.einsum("btd,dk->btk", x, w2)
+    rules = current_rules()
+    spec = rules.spec_for(("act_batch", "act_seq", "act_heads", None),
+                          (b, t, h, hd))
+    y = y.redistribute(rules.mesh, rules.placements_for(spec[:3]))
+    return y.view(b, t, h, hd)
 
 
 def mlp_specs(d_model: int, d_ff: int) -> dict:
@@ -85,6 +113,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len``: (B,) valid cache lengths; None = all valid.
     ``window``: sliding-window size (0 = full).
     """
+    if isinstance(q, DTensor):
+        return _blocked_local(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len, window=window,
+                              block_kv=block_kv, scale=scale)
     b, t, h, hd = q.shape
     s = k.shape[1]
     dev = q.device
@@ -130,6 +162,26 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)                        # (B,T,H,hd)
 
 
+def _blocked_local(q, k, v, *, kv_len, **kw):
+    """``blocked_attention`` of DTensors (a cell on a mesh), on each
+    rank's rows and heads: the attention of each (row, head) is
+    independent of the others', so with q, k and v placed alike (the
+    batch over "act_batch", the GQA-repeated heads over "act_heads"),
+    each rank's local call is exact, forward and backward, and no score
+    leaves the rank.  (At the DTensor level the products would flatten B
+    with H, split over two mesh axes at once, which DTensor's sharding
+    propagation takes minutes to place on a 3-axis mesh.)"""
+    rows_heads = ("act_batch", None, "act_heads", None)
+    q, k, v = (constrain(x, rows_heads) for x in (q, k, v))
+    pl = tuple(q.placements)
+    if kv_len is not None or any(p.is_partial() or p.is_shard()
+                                 and p.dim not in (0, 2) for p in pl):
+        raise ValueError(f"blocked_attention: q at {pl}; shard the batch "
+                         "and the heads only, with no kv_len")
+    fn = functools.partial(blocked_attention, kv_len=None, **kw)
+    return run_local(fn, None, (pl, pl, pl), pl, q, k, v, products=True)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, kv_len: torch.Tensor,
                      window: int = 0,
@@ -141,11 +193,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     float32 copies of their inputs, and the probabilities are rounded to
     the cache's dtype before P·V, as in the reference.
     """
+    # q is tiny: its heads whole on each rank, so that the scores keep the
+    # cache's len-sharding (no product flattens B with split heads)
+    q = constrain(q, ("act_batch", None, None, None))
     hd = q.shape[-1]
     s = k_cache.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     scores = torch.einsum("bthd,bshd->bhts", q.float(),
                           k_cache.float()) * scale
+    # scores inherit the cache's len-sharding; softmax reduces over the
+    # sharded dim with tiny (B,H,T) collectives
+    scores = constrain(scores, ("act_batch", None, None, "cache_len"))
     pos_k = torch.arange(s, dtype=torch.int32, device=q.device)
     mask = pos_k[None, :] < kv_len[:, None]                       # (B,S)
     if window:  # sliding-window: only the last `window` positions attend
@@ -167,5 +225,13 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                              NEG_INF)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # vocab-sharded logits: each shard selects its own label column
+        # and the sum over vocab adds one value to zeros, exactly the
+        # gathered one (DTensor's gather of a sharded dim fails)
+        col = torch.arange(padded, device=logits.device)
+        ll = torch.where(col == labels.long()[..., None], logits,
+                         0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)

@@ -12,18 +12,23 @@ An MoE block's metrics (aux and z-losses, drop fraction) come back from
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import TensorSpec, stack_specs
+from repro_torch.distributed.sharding import (ACT, TensorSpec, constrain,
+                                              current_rules, run_local,
+                                              shards, stack_specs,
+                                              use_rules)
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.attention import KVCache
 from repro_torch.moe.moe import moe_apply, moe_specs
@@ -42,6 +47,13 @@ def cast_tree(tree, dtype):
     return tu.tree_map(c, tree)
 
 
+def gather_weights(lp: dict, run: RunConfig) -> dict:
+    """FSDP gather-then-compute (RunConfig.fsdp_gather_weights)."""
+    if not run.fsdp_gather_weights:
+        return lp
+    return tu.tree_map(lambda a: constrain(a, (None,) * a.ndim), lp)
+
+
 # the matrix products ``remat="dots"`` keeps (``einsum``, ``matmul`` and
 # ``linear`` lower to these), as the reference's ``checkpoint_dots``
 # keeps every ``dot_general``
@@ -58,18 +70,20 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 class RunConfig:
     """Execution knobs.  ``remat`` != "none" recomputes each layer in the
     backward pass (``torch.utils.checkpoint``), keeping what
-    ``remat_policy`` says.
-
-    The reference's mesh knobs have no counterpart on one card:
-    ``logical_rules`` overrides a sharding rule table and
-    ``fsdp_gather_weights`` (with ``gather_weights``) gathers each layer's
-    FSDP-sharded weights before use; here every weight is whole.  The
-    capsule manifest writes both at the reference's defaults."""
+    ``remat_policy`` says.  The mesh knobs act on a cell built on a mesh
+    and are inert elsewhere: ``logical_rules`` overrides entries of the
+    sharding rule table, and ``fsdp_gather_weights`` (``gather_weights``)
+    gathers each layer's FSDP-sharded weights whole before use."""
     remat: str = "full"              # none | full | dots
     block_kv: int = 1024
     ssm_chunk: int = 256
     capacity_factor: float = 1.25
     compute_dtype: Any = torch.bfloat16
+    logical_rules: Optional[dict] = None   # sharding-rule overrides
+    # FSDP semantics: gather each layer's (sharded) weights to replicated
+    # right before use, rather than letting the sharded product pick its
+    # own redistribution (partial sums of whole activations)
+    fsdp_gather_weights: bool = False
 
     def remat_policy(self):
         """-> the ``context_fn`` each layer's ``checkpoint`` takes, or None
@@ -83,6 +97,26 @@ class RunConfig:
             return functools.partial(create_selective_checkpoint_contexts,
                                      _save_dots)
         return noop_context_fn
+
+
+def recompute_under_rules(context_fn):
+    """``context_fn`` (a ``checkpoint`` context function) whose recompute
+    context also holds the sharding rules the forward ran under: the
+    backward, where the recompute runs, may run on another thread (the
+    card's autograd thread), which does not see the forward's."""
+    def contexts():
+        fwd, recompute = context_fn()
+        rules = current_rules()
+        if rules is None:
+            return fwd, recompute
+        return fwd, _both(recompute, use_rules(rules))
+    return contexts
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +219,47 @@ def _block_decode(cfg: ArchConfig, run: RunConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
-    return params["embed"].to(dtype)[tokens.long()]
+    table = params["embed"].to(dtype)
+    if isinstance(table, DTensor):
+        return _lookup_sharded(table, tokens)
+    return table[tokens.long()]
+
+
+def _lookup_sharded(table: DTensor, tokens: DTensor) -> DTensor:
+    """The embedding lookup on a mesh: the table's rows split by its vocab
+    rule (the rest gathered whole), each rank looks up the tokens of its
+    batch shard that fall in its rows and zeros the rest; the output is a
+    partial sum over the vocab's mesh dims, which one value and zeros
+    make exact.  The local lookup is the plain one, forward and backward
+    (DTensor's own ``index`` has no strategy for a split table's
+    backward, nor on a 3-axis mesh)."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):      # a plain batch: the same on
+        tokens = DTensor.from_local(         # every rank
+            tokens, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    table = constrain(table, ("vocab", None))
+    tokens = constrain(tokens, ("act_batch", None))
+    pt, pk = tuple(table.placements), tuple(tokens.placements)
+    vocab_dims = [i for i, p in enumerate(pt) if p.is_shard()]
+    if any(pk[i].is_shard() for i in vocab_dims):
+        raise ValueError(f"embedding: tokens at {pk} split a mesh dim the "
+                         f"table's vocab {pt} splits")
+    coord, first = mesh.get_coordinate(), 0
+    for i in vocab_dims:
+        first = first * mesh.size(i) + coord[i]
+    first *= table.shape[0] // shards(mesh, pt)
+
+    def look(t, ids):
+        local = ids.long() - first
+        hit = (local >= 0) & (local < t.shape[0])
+        return t[local.clamp(0, t.shape[0] - 1)] * hit[..., None].to(t.dtype)
+
+    out = tuple(Partial() if i in vocab_dims else p
+                for i, p in enumerate(pk))
+    grad = tuple(Partial() if pk[i].is_shard() else p
+                 for i, p in enumerate(pt))
+    return run_local(look, None, (pt, pk), out, table, tokens,
+                     grad_placements=(grad, pk))
 
 
 def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -197,29 +271,34 @@ def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   run: RunConfig = RunConfig(), *, causal: bool = True):
     """tokens: (B, T) -> (logits (B,T,Vp), metrics)."""
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(b, t)
     layer_params = cast_tree(params["layers"], run.compute_dtype)
 
     def body(x, lp):
-        return _block_train(cfg, run, lp, x, positions, causal)
+        lp = gather_weights(lp, run)
+        x, metrics = _block_train(cfg, run, lp, x, positions, causal)
+        return constrain(x, ACT), metrics
 
     policy = run.remat_policy()
     per_layer = []
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
         if policy is not None:
-            x, metrics = checkpoint(body, x, lp, use_reentrant=False,
-                                    context_fn=policy)
+            x, metrics = checkpoint(
+                body, x, lp, use_reentrant=False,
+                context_fn=recompute_under_rules(policy))
         else:
             x, metrics = body(x, lp)
         per_layer.append(metrics)
     x = layers.rms_norm(x, params["final_norm"], cfg.rms_eps)
     metrics = {k: torch.stack([m[k] for m in per_layer]).mean()
                for k in per_layer[0]}
-    return unembed(params, cfg, x), metrics
+    logits = constrain(unembed(params, cfg, x),
+                       ("act_batch", "act_seq", "act_vocab"))
+    return logits, metrics
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -231,14 +310,14 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     layer's attention is one flash-attention launch and every layer's
     selective scan one ``ssm_scan`` launch.
     """
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(b, t)
     layer_params = cast_tree(params["layers"], run.compute_dtype)
     per_layer = []
     for i in range(cfg.n_layers):
-        lp = tu.tree_map(lambda a: a[i], layer_params)
+        lp = gather_weights(tu.tree_map(lambda a: a[i], layer_params), run)
         new_cache = {}
         xn = layers.rms_norm(x, lp["ln1"], cfg.rms_eps)
         if cfg.family == "ssm":
@@ -255,6 +334,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             else:
                 x = x + a
             x, _ = _ffn(cfg, run, lp, x)
+        x = constrain(x, ACT)
         per_layer.append(new_cache)
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
     logits = unembed(params, cfg, x)[:, 0]
@@ -277,13 +357,14 @@ def decode_step(params: dict, cfg: ArchConfig, caches: dict,
     """One-token decode.  tokens: (B, 1); index: scalar current length, or
     (B,) per-sequence lengths.  Returns (logits (B, 1, Vp), caches); the
     cache tensors are updated in place and returned."""
-    x = embed_tokens(params, cfg, tokens, run.compute_dtype)
+    x = constrain(embed_tokens(params, cfg, tokens, run.compute_dtype), ACT)
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     layer_params = cast_tree(params["layers"], run.compute_dtype)
     for i in range(cfg.n_layers):
         lp = tu.tree_map(lambda a: a[i], layer_params)
         cache = tu.tree_map(lambda c: c[i], caches)   # views of layer i
         x, new = _block_decode(cfg, run, lp, x, cache, index)
+        x = constrain(x, ACT)
         if "ssm" in new:    # the KV rows were written in place already
             for dst, src in zip(cache["ssm"], new["ssm"]):
                 dst.copy_(src)

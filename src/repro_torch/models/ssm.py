@@ -17,13 +17,16 @@ as the reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import TensorSpec
+from repro_torch.distributed.sharding import (ACT, TensorSpec, constrain,
+                                              run_local)
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
 
@@ -62,6 +65,8 @@ def ssm_cache_specs(cfg: ArchConfig, batch: int,
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d via shifted adds.  x: (B, T, Di); w: (dc, Di)."""
+    if isinstance(x, DTensor):
+        return _conv_local(x, w, b)
     dc, t = w.shape[0], x.shape[1]
     out = x * w[-1].to(x.dtype)
     for i in range(1, dc):
@@ -70,10 +75,33 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b.to(x.dtype)
 
 
+def _conv_local(x, w, b):
+    """``_causal_conv`` of DTensors (a cell on a mesh) on each rank's rows
+    and channels: the depthwise conv runs along T alone.  w and b are
+    split as x's channels; each batch shard's rows give them a partial
+    gradient."""
+    x = constrain(x, ("act_batch", None, "act_inner"))
+    px = tuple(x.placements)
+    if any(p.is_partial() or p.is_shard() and p.dim == 1 for p in px):
+        raise ValueError(f"_causal_conv: x at {px}")
+    # per mesh dim: w (dc, Di) and b (Di,) split where x's channels are
+    pw = tuple(Shard(1) if p == Shard(2) else Replicate() for p in px)
+    pb = tuple(Shard(0) if p == Shard(2) else Replicate() for p in px)
+    gw = tuple(Partial() if p == Shard(0) else q for p, q in zip(px, pw))
+    gb = tuple(Partial() if p == Shard(0) else q for p, q in zip(px, pb))
+    return run_local(_causal_conv, None, (px, pw, pb), px, x,
+                     w.redistribute(w.device_mesh, pw),
+                     b.redistribute(b.device_mesh, pb),
+                     grad_placements=(px, gw, gb))
+
+
 def _scan_inputs(p: dict, xc: torch.Tensor, cfg: ArchConfig):
     """Input-dependent (dt, B, C) and a = -exp(A_log), all float32."""
     n, r = cfg.ssm.d_state, cfg.dt_rank
-    dbc = xc.float() @ p["x_proj"].float()
+    # the rows' (dt, B, C) whole on each rank (a pending sum over split
+    # channels reduced here, and so is the gradient on its way back)
+    dbc = constrain(xc.float() @ p["x_proj"].float(),
+                    ("act_batch", None, None))
     dt, bm, cm = torch.split(dbc, [r, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())                           # (Di, N)
@@ -105,6 +133,8 @@ def _chunked_scan(abar: torch.Tensor, bx: torch.Tensor, cm: torch.Tensor,
     """Sequential over time chunks carrying h, associative inside each;
     (B, T, Di, N) inputs -> y (B, T, Di) float32.  A short last chunk
     stands in for the reference's identity-padded one."""
+    if isinstance(abar, DTensor):
+        return _chunked_local(abar, bx, cm, chunk)
     b, t, di, n = abar.shape
     h = abar.new_zeros((b, di, n))
     ys = []
@@ -114,6 +144,25 @@ def _chunked_scan(abar: torch.Tensor, bx: torch.Tensor, cm: torch.Tensor,
         ys.append(torch.einsum("bcdn,bcn->bcd", hs, cm[:, s:s + chunk]))
         h = hs[:, -1]
     return torch.cat(ys, 1)
+
+
+def _chunked_local(abar, bx, cm, chunk: int):
+    """``_chunked_scan`` of DTensors (a cell on a mesh) on each rank's
+    rows and channels: the recurrence is independent across both, so each
+    local scan is exact.  C is shared by the channels, so where they are
+    split its gradient from each rank is a partial sum."""
+    chans = ("act_batch", None, "act_inner", None)
+    abar, bx = constrain(abar, chans), constrain(bx, chans)
+    cm = constrain(cm, ("act_batch", None, None))
+    pa, pc = tuple(abar.placements), tuple(cm.placements)
+    if any(p.is_partial() or p.is_shard() and p.dim not in (0, 2)
+           for p in pa):
+        raise ValueError(f"_chunked_scan: abar at {pa}")
+    py = tuple(p if p == Replicate() else Shard(p.dim) for p in pa)
+    pgc = tuple(Partial() if a == Shard(2) else c for a, c in zip(pa, pc))
+    return run_local(functools.partial(_chunked_scan, chunk=chunk), None,
+                     (pa, pa, pc), py, abar, bx, cm,
+                     grad_placements=(pa, pa, pgc), products=True)
 
 
 def ssm_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -129,19 +178,27 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     xc = F.silu(_causal_conv(xr, p["conv_w"], p["conv_b"]))      # (B,T,Di)
     if return_state:
         dt, bm, cm, a = _scan_inputs(p, xc, cfg)
+        # the kernel runs on each rank's rows and channels
+        chans = ("act_batch", None, "act_inner")
+        rows = ("act_batch", None, None)
         # y leaves the scan in f32, as the reference keeps it through + D
-        y, h_final = ssm_ops.selective_scan(xc.float(), dt, bm, cm, a,
-                                            return_state=True)
+        y, h_final = ssm_ops.selective_scan(
+            constrain(xc.float(), chans), constrain(dt, chans),
+            constrain(bm, rows), constrain(cm, rows),
+            constrain(a, ("act_inner", None)), return_state=True)
     else:
         abar, bx, cm = _ssm_params(p, xc, cfg)
         y = _chunked_scan(abar, bx, cm, min(chunk, t))
     y = y + xc.float() * p["D"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = constrain(y @ p["out_proj"].to(x.dtype), ACT)
     if not return_state:
         return out
     dc = cfg.ssm.d_conv
-    conv_tail = F.pad(xr, (0, 0, dc - 1, 0))[:, t:t + dc - 1]
+    # the last dc - 1 inputs, zeros ahead of a shorter sequence (a slice
+    # where T suffices: DTensor's pad cannot place a split batch)
+    conv_tail = xr[:, t - (dc - 1):] if t >= dc - 1 else \
+        F.pad(xr, (0, 0, dc - 1, 0))[:, t:t + dc - 1]
     return out, SSMCache(conv=conv_tail.float(), h=h_final)
 
 
@@ -161,5 +218,5 @@ def ssm_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
     y = torch.einsum("bdn,bn->bd", h, cm[:, 0])[:, None]         # (B,1,Di)
     y = y + xc.float() * p["D"].float()
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = constrain(y @ p["out_proj"].to(x.dtype), ACT)
     return out, SSMCache(conv=window[:, 1:].to(cache.conv.dtype), h=h)

@@ -23,13 +23,15 @@ kernel.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import TensorSpec
+from repro_torch.distributed.sharding import TensorSpec, constrain, run_local
 from repro_torch.models import layers
 
 
@@ -48,30 +50,24 @@ def moe_specs(cfg: ArchConfig) -> dict:
     return out
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, dict]:
-    """x: (B, T, D) -> (y, metrics).  Differentiable through gates."""
+def _route(x: torch.Tensor, probs: torch.Tensor, e: int, k: int,
+           cap: int):
+    """Each batch row's dispatch, row by row: x (B, T, D), probs (B, T, E)
+    -> (xin (B, E, C, D), counts (B, E), keep (B, I) in sorted order, and
+    per (token, slot) pair in token order its gate (0 where dropped) and
+    its slot in the row's (E * C) buffer).  Every index stays inside its
+    row, so a batch shard's rows route alone."""
     b, t, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
     n_items = t * k                                    # per-row (token,slot)s
     dev = x.device
-
-    logits = x.float() @ p["router"].float()                      # (B,T,E)
-    probs = torch.softmax(logits, dim=-1)
     # on an exact tie jax.lax.top_k puts the lower expert first, and
     # torch.topk promises no order; router logits from random weights do
     # not tie exactly, so the two pick the same experts
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)          # (B,T,k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)                 # renormalize
-
-    # ---- aux losses (global means; cheap scalars) ----
     flat_expert = expert_ids.reshape(b, n_items)                  # (B,I)
     counts = F.one_hot(flat_expert, e).sum(1)                     # (B,E) int
-    me = probs.mean((0, 1))                                       # (E,)
-    ce = (counts.float() * (1.0 / (b * n_items))).sum(0)
-    aux = e * torch.sum(me * ce)
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     # ---- grouped (per batch row) sort-based dispatch ----
     flat_token = torch.arange(t, device=dev).repeat_interleave(k) \
@@ -80,7 +76,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     sorted_expert = torch.gather(flat_expert, 1, order)
     sorted_token = torch.gather(flat_token, 1, order)
 
-    cap = max(int(capacity_factor * n_items / e), 1)
     offsets = torch.cumsum(counts, -1) - counts                   # (B,E)
     rank = torch.arange(n_items, device=dev) - torch.gather(
         offsets, 1, sorted_expert)                                # (B,I)
@@ -97,26 +92,99 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
         0, (rows * t + tok_for_slot).reshape(-1)).reshape(b, e, cap, d) \
         * slot_valid[..., None].to(x.dtype)                       # (B,E,C,D)
 
-    # expert MLPs — the only matmul FLOPs in this block
-    dt = x.dtype
-    h = F.silu(torch.einsum("becd,edf->becf", xin, p["w_gate"].to(dt))) \
-        * torch.einsum("becd,edf->becf", xin, p["w_up"].to(dt))
-    yexp = torch.einsum("becf,efd->becd", h, p["w_down"].to(dt))
-
-    # combine: where the reference scatter-adds each kept item into its
-    # token, each token gathers its k items back through the sort's
-    # inverse and sums them, weighted by their gates (0 where dropped):
-    # the same sum with no scatter, whose deterministic form on the card
-    # is a sort
+    # where the reference scatter-adds each kept item into its token,
+    # each token gathers its k items back through the sort's inverse
     item_slot = sorted_expert * cap + torch.clamp(rank, 0, cap - 1)
     inv = torch.argsort(order, dim=-1)          # (t, slot) -> its position
     weight = torch.where(torch.gather(keep, 1, inv),
                          gate_vals.reshape(b, n_items), 0.0)      # (B,I)
+    return xin, counts, keep, weight, torch.gather(item_slot, 1, inv)
+
+
+def _experts(xin: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLUs over the (B, E, C, D) buffer, as batched
+    products."""
+    h = F.silu(torch.einsum("becd,edf->becf", xin, w_gate)) \
+        * torch.einsum("becd,edf->becf", xin, w_up)
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def _experts_by_expert(xin: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor,
+                       w_down: torch.Tensor) -> torch.Tensor:
+    """``_experts`` on DTensors, as ``bmm``s over the expert dim of an
+    (E, B*C, D) buffer: the experts' split stays a split of the products'
+    batch dim, and no product's backward views a gradient that DTensor
+    left strided (which ``einsum``'s does)."""
+    b, e, cap, d = xin.shape
+    x = xin.permute(1, 0, 2, 3).reshape(e, b * cap, d)
+    h = F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up)
+    return torch.bmm(h, w_down).reshape(e, b, cap, d).permute(1, 0, 2, 3)
+
+
+def _combine(yexp: torch.Tensor, weight: torch.Tensor,
+             slot_of: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k expert outputs, weighted by their gates (0 where
+    dropped) and summed: the same sum as the reference's scatter-add with
+    no scatter, whose deterministic form on the card is a sort.  yexp
+    (B, E, C, D), weight and slot_of (B, T*k) -> (B, T, D)."""
+    b, e, cap, d = yexp.shape
+    rows = torch.arange(b, device=yexp.device)[:, None]
     item_y = yexp.reshape(b * e * cap, d).index_select(
-        0, (rows * (e * cap) + torch.gather(item_slot, 1, inv))
-        .reshape(-1))                                             # (B*I,D)
-    y = (item_y.reshape(b, t, k, d)
-         * weight.reshape(b, t, k, 1).to(item_y.dtype)).sum(2)
+        0, (rows * (e * cap) + slot_of).reshape(-1))              # (B*I,D)
+    return (item_y.reshape(b, -1, k, d)
+            * weight.reshape(b, -1, k, 1).to(item_y.dtype)).sum(2)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
+              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, dict]:
+    """x: (B, T, D) -> (y, metrics).  Differentiable through gates.
+
+    On DTensors (a cell on a mesh) the routing and the combine run on
+    each rank's rows (``run_local``, the batch sharded, everything else
+    whole), the expert products on the expert buffer constrained to the
+    experts' axis, and the buffer's outputs are gathered back to their
+    rows before the combine."""
+    b, t, d = x.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    n_items = t * k                                    # per-row (token,slot)s
+    cap = max(int(capacity_factor * n_items / e), 1)
+
+    logits = x.float() @ p["router"].float()                      # (B,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    route = functools.partial(_route, e=e, k=k, cap=cap)
+    if isinstance(x, DTensor):
+        rows = ("act_batch", None, None)
+        x, probs = constrain(x, rows), constrain(probs, rows)
+        pl = tuple(x.placements)
+        pr = tuple(p if p.is_shard() else Replicate() for p in pl)
+        xin, counts, keep, weight, slot_of = run_local(
+            route, None, (pl, pl), (pr,) * 5, x, probs)
+    else:
+        xin, counts, keep, weight, slot_of = route(x, probs)
+
+    # ---- aux losses (global means; cheap scalars) ----
+    me = probs.mean((0, 1))                                       # (E,)
+    ce = (counts.float() * (1.0 / (b * n_items))).sum(0)
+    aux = e * torch.sum(me * ce)
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+    # expert MLPs — the only matmul FLOPs in this block (E sharded: EP)
+    xin = constrain(xin, ("act_batch", "experts", None, None))
+    dt = x.dtype
+    ws = tuple(p[n].to(dt) for n in ("w_gate", "w_up", "w_down"))
+    yexp = (_experts_by_expert if isinstance(xin, DTensor)
+            else _experts)(xin, *ws)
+
+    combine = functools.partial(_combine, k=k)
+    if isinstance(yexp, DTensor):
+        yexp = constrain(yexp, ("act_batch", None, None, None))
+        y = run_local(combine, None, (pr, pr, pr), pr, yexp, weight,
+                      slot_of)
+    else:
+        y = combine(yexp, weight, slot_of)
+    y = constrain(y, ("act_batch", "act_seq", "act_embed"))
 
     if "shared" in p:
         sh = p["shared"]
@@ -128,4 +196,6 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
         # the reference's mean as XLA computes it, a product with 1/n
         "moe_drop_frac": 1.0 - keep.float().sum() * (1.0 / keep.numel()),
     }
-    return y, metrics
+    # whole on every rank: a scalar left as a pending partial sum has
+    # no backward through the loss's add
+    return y, {k: constrain(v, ()) for k, v in metrics.items()}

@@ -23,7 +23,9 @@ quantizer and its images, bit for bit against the CPU (IEEE division and
 round half to even on both), and the refs an encoder on the card writes
 equal the CPU encoder's; for the encoder–decoder on the card against the
 CPU, 2e-5 (f32: the same arithmetic in another order) and 2e-2 (bf16) of
-the largest value, its bf16 caches one bf16 step apart at most.
+the largest value, its bf16 caches one bf16 step apart at most; for a
+cell on a (1, 1) card mesh against the same cell on the card, bit for bit
+(the same local arithmetic on the same values).
 """
 from __future__ import annotations
 
@@ -914,6 +916,46 @@ def test_build_cell_on_the_card_matches_cpu(deterministic):
                     strict=True):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k"])
+def test_card_mesh_cell_equals_the_card_cell(deterministic, shape_name):
+    """A reduced granite-3-2b cell built on a (1, 1) ``DeviceMesh`` over an
+    NCCL group of one (every argument a DTensor, the step inside the
+    rules) gives the cell built on the card bit for bit: loss, updated
+    state, logits and caches; a prefill launches the attention kernel
+    once per layer on either."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import SHAPES, get_arch, reduced
+    from repro_torch.launch import mesh
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.models.lm import RunConfig
+    cfg = reduced(get_arch("granite-3-2b"), d_model=256, n_heads=4)
+    shape = dataclasses.replace(SHAPES[shape_name], seq_len=64,
+                                global_batch=2)
+    run = RunConfig()
+
+    def launched(c):
+        flash_attention.launches = 0
+        out = c.step(*c.args)
+        return out, flash_attention.launches
+
+    want, want_n = launched(build_cell(cfg, shape, deterministic, run))
+    with mesh.process_group("nccl", 1):
+        m = mesh.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        got, got_n = launched(build_cell(cfg, shape, m, run))
+        got = [(k, v.to_local() if isinstance(v, DTensor) else v)
+               for k, v in tu.flatten_with_keys(got)]
+    assert got_n == want_n == (cfg.n_layers if shape.kind == "prefill"
+                               else 0)
+    want = tu.flatten_with_keys(want)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (key, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), key
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "hymba-1.5b"])

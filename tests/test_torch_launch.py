@@ -387,7 +387,7 @@ def test_dryrun_cells(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun, "build_cell", broken)
     with pytest.raises(SystemExit) as exc:
         dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k",
-                     "--out", str(tmp_path)])
+                     "--mesh", "h100", "--out", str(tmp_path)])
     assert exc.value.code == 1
     rec = json.loads((tmp_path / "granite-3-2b__decode_32k__h100.json")
                      .read_text())
