@@ -16,7 +16,9 @@ no backward on either route.  A meta tensor (the dry run,
 ``repro_torch.launch.dryrun``) computes nothing: that route returns an
 empty output of the kernel's shape and dtype and adds the call's
 operations (``flops``, the same count ``chip_smoke.py`` bounds the kernel
-by) to ``flash_attention.meta_flops``.  Any other device raises.
+by) to ``flash_attention.meta_flops`` and ``meta_flops_device`` (on a
+mesh, ``run_local`` scales the first to every shard of a local call and
+leaves the second one device's).  Any other device raises.
 
 The kernel reads q, k and v and writes o through their batch, head and
 row strides, so strided views (the model's (B, T, H, hd) tensors seen as
@@ -177,7 +179,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return res if out is None else out.copy_(res)
     if q.device.type == "meta":
         b, h, t, hd = q.shape
-        flash_attention.meta_flops += flops(b, h, t, s_valid, hd, causal)
+        n = flops(b, h, t, s_valid, hd, causal)
+        flash_attention.meta_flops += n
+        flash_attention.meta_flops_device += n
         return torch.empty_like(q) if out is None else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
@@ -209,3 +213,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.meta_flops = 0
+flash_attention.meta_flops_device = 0

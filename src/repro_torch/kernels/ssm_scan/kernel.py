@@ -16,9 +16,10 @@ is no fallback from the card to the plain version.  A meta tensor (the
 dry run, ``repro_torch.launch.dryrun``) computes nothing: that route
 returns empty outputs of the kernel's shapes and dtypes and adds the
 call's operations (``flops``, the same count ``chip_smoke.py`` bounds the
-kernel by) to ``ssm_scan.meta_flops``; it never runs the plain version's
-per-step loop, which at T = 524,288 would take minutes on the host.  Any
-other device raises.
+kernel by) to ``ssm_scan.meta_flops`` and ``meta_flops_device`` (one
+device's, which ``run_local`` leaves unscaled); it never runs the plain
+version's per-step loop, which at T = 524,288 would take minutes on the
+host.  Any other device raises.
 
 ``plan`` is the launch rule: how many lanes of a warp share one channel's
 states, and whether T is cut into chunks that run side by side (two CUDA
@@ -198,7 +199,9 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         return ssm_scan_ref(x, dt, bm, cm, a, return_state=return_state)
     b, t, di = x.shape
     if x.device.type == "meta":
-        ssm_scan.meta_flops += flops(b, t, di, bm.shape[-1])
+        n = flops(b, t, di, bm.shape[-1])
+        ssm_scan.meta_flops += n
+        ssm_scan.meta_flops_device += n
         y = torch.empty_like(x)
         h = x.new_empty((b, di, bm.shape[-1]), dtype=torch.float32)
         return (y, h) if return_state else y
@@ -213,6 +216,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
 
 ssm_scan.launches = 0
 ssm_scan.meta_flops = 0
+ssm_scan.meta_flops_device = 0
 
 
 def launch(x, dt, bm, cm, a, how: Plan) -> tuple:

@@ -18,10 +18,11 @@ with the cell's arguments as meta DTensors at their resolved placements
 (``--override`` and ``--fsdp-gather`` change the rules, as the
 reference's do).  Each cell's JSON (``{arch}__{shape}__{mesh}[__tag]
 .json``) holds its status, the traced FLOPs (global, as the reference's,
-and per device) against ``costmodel.analytic_cost``'s model FLOPs, the
-collectives DTensor issued (count, output and wire bytes by op), the
-roofline against H100 peak and link rates, the bytes one device holds
-against the card's 80 GB, and the trace seconds.  A cell
+and those one device runs, which exceed global / n where a mesh dim
+leaves a product replicated) against ``costmodel.analytic_cost``'s model
+FLOPs, the collectives DTensor issued (count, output and wire bytes by
+op), the roofline against H100 peak and link rates, the bytes one device
+holds against the card's 80 GB, and the trace seconds.  A cell
 ``shape_applicable`` rejects is ``skipped``, with its reason; a cell that
 fails is an error, and the run exits 1.
 """
@@ -80,15 +81,15 @@ def _trace(arch, shape, run: RunConfig, mesh_name: str, rec: dict) -> None:
                           run)
         n_dev = mesh_mod.chips(cell.mesh)
     t0 = time.perf_counter()
-    ops, coll = flop_analysis.traced(cell.step, *cell.args)
+    ops, per_device, coll = flop_analysis.traced(cell.step, *cell.args)
     trace_s = time.perf_counter() - t0
     cost = costmodel.analytic_cost(arch, shape, n_dev, run)
     roof = flop_analysis.Roofline(
-        flops_per_device=sum(ops.values()) / n_dev,
+        flops_per_device=sum(per_device.values()),
         hbm_bytes_per_device=cost.hbm_bytes_per_device,
         n_devices=n_dev,
         model_flops_per_device=cost.model_flops_w_attn / n_dev,
-        fp32_flops_per_device=ops["float32"] / n_dev,
+        fp32_flops_per_device=per_device["float32"],
         coll=coll if cell.mesh is not None else None)
     nbytes = cell_bytes(arch, shape, run, cell.rules)
     rec.update(

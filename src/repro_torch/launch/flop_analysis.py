@@ -19,13 +19,16 @@ The port has no HLO, so it counts what eager PyTorch runs:
   ``FlopCounterMode`` sees each DTensor op at its global shapes, once,
   and a kernel run on local shards scales its count to the shards
   (``sharding.run_local``); the reference's count is the pre-SPMD global
-  one too, divided by the devices.
-* Collectives: ``traced_collectives`` (the counterpart of
-  ``parse_collectives``) runs the step under a dispatch mode that sees
-  every ``_c10d_functional`` collective DTensor issues and records its
-  output bytes and its group, the reference's wire factor turning those
-  into bytes each device sends; ``CollectiveStats.seconds()`` charges
-  each at its group's link rate (``mesh.link_bw``).
+  one too, which it divides evenly over the devices.
+* One device's share: ``traced`` runs the step under ``traced_ops`` and,
+  beneath it, a dispatch mode that sees the ops one device runs on its
+  local shards: their FLOPs (what ``compute_s`` charges; a product left
+  replicated over some mesh dims is counted as often as each device
+  repeats it) and every ``_c10d_functional`` collective DTensor issues,
+  with its output bytes and its group (the counterpart of
+  ``parse_collectives``), the reference's wire factor turning those into
+  bytes each device sends; ``CollectiveStats.seconds()`` charges each at
+  its group's link rate (``mesh.link_bw``).
 * Bytes: ``memory_dict`` takes the argument, output and cache trees'
   bytes from their specs (``param_bytes``; on a mesh, one device's
   shards) and the activations from the cost model's inventory (on a
@@ -33,8 +36,8 @@ The port has no HLO, so it counts what eager PyTorch runs:
   keys.
 * ``Roofline`` keeps the reference's fields, properties and
   ``summary()`` keys, against one H100's peak rates (``mesh``); the
-  summary's ``hlo_flops_per_device`` holds the traced count, and
-  ``fp32_flops_per_device`` the part of it ``compute_s`` charges at the
+  summary's ``hlo_flops_per_device`` holds one device's traced count,
+  and ``fp32_flops_per_device`` the part of it ``compute_s`` charges at the
   float32 peak.  Without ``coll`` (one card) ``collective_s`` is 0.
 """
 from __future__ import annotations
@@ -45,9 +48,10 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.sharding import LOCAL_SHARDS, param_bytes
@@ -135,29 +139,41 @@ class CollectiveStats:
         return self.link_seconds
 
 
-class _CollectiveCounter(TorchDispatchMode):
-    """Records each collective a step issues.  A DTensor op is handed back
-    (``NotImplemented``) so that DTensor runs it and issues its
-    collectives on plain local tensors, which this mode then sees.
-    DTensor's shard-to-shard all-to-all is recorded as one, and what it
+class _DeviceCounter(TorchDispatchMode):
+    """What one device runs of a step: its matrix products' FLOPs and the
+    collectives it takes part in.  A DTensor op is handed back
+    (``NotImplemented``) so that DTensor runs it on plain local tensors,
+    which this mode then sees; an op on plain tensors (an unsharded step,
+    a ``run_local`` call's body) is seen as it runs, and one on the fake
+    tensors DTensor propagates shapes with is not counted.  DTensor's
+    shard-to-shard all-to-all is recorded as one collective, and what it
     issues inside (on a CPU mesh, an all-gather it chunks) is not."""
 
     def __init__(self, stats: CollectiveStats):
         super().__init__()
         self.stats = stats
+        self.flops = 0
         self.inside = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        kwargs = kwargs or {}
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor working out an output's shape, not a device's work
+            return func(*args, **kwargs)
         name = getattr(func, "_opname", "")
         op = _COLLECTIVE_OPS.get(name) \
             if func.namespace in ("_c10d_functional", "_dtensor") else None
         if op is None or self.inside:
-            return func(*args, **(kwargs or {}))
+            out = func(*args, **kwargs)
+            count = flop_registry.get(func._overloadpacket)
+            if count is not None:
+                self.flops += count(*args, **kwargs, out_val=out)
+            return out
         self.inside += 1
         try:
-            out = func(*args, **(kwargs or {}))
+            out = func(*args, **kwargs)
         finally:
             self.inside -= 1
         group = dist.distributed_c10d._resolve_process_group(args[-1])
@@ -166,22 +182,25 @@ class _CollectiveCounter(TorchDispatchMode):
         return out
 
 
-def traced_collectives(fn, *args) -> CollectiveStats:
-    """The collectives of one call ``fn(*args)``: count, output bytes and
-    wire bytes per device by op (the reference's ``parse_collectives``)."""
-    stats = CollectiveStats()
-    with _CollectiveCounter(stats):
-        fn(*args)
-    return stats
-
-
 def traced(fn, *args) -> tuple:
-    """One call ``fn(*args)`` -> (``traced_ops``, ``traced_collectives``)
-    from the same run."""
+    """One call ``fn(*args)`` -> (``traced_ops``, one device's share of
+    them by the same peaks, its ``CollectiveStats``), from the same run.
+
+    One device's FLOPs are those of the ops it runs on its local shards
+    (on the ``fake`` backend, rank 0's, the largest of uneven shards):
+    a product DTensor splits over every mesh dim counts 1/n of its global
+    FLOPs, and a product that some mesh dims leave replicated (a
+    ``run_local`` kernel split only by the batch, KV heads whole on the
+    model axis) counts the more that each device repeats."""
     stats = CollectiveStats()
-    with _CollectiveCounter(stats):
+    device = _DeviceCounter(stats)
+    before = [k.meta_flops_device for k, _ in _META_COUNTED]
+    with device:
         ops = traced_ops(fn, *args)
-    return ops, stats
+    per_device = {"bfloat16": float(device.flops), "float32": 0.0}
+    for (k, dtype), b in zip(_META_COUNTED, before):
+        per_device[dtype] += k.meta_flops_device - b
+    return ops, per_device, stats
 
 
 def activation_bytes(cfg: ArchConfig, shape: ShapeConfig,
@@ -228,7 +247,8 @@ def memory_dict(cell, run: RunConfig) -> dict:
 
 @dataclass
 class Roofline:
-    flops_per_device: float      # traced (the reference: HLO-derived)
+    flops_per_device: float      # one device's traced (the reference:
+                                 # HLO-derived, global / n_devices)
     hbm_bytes_per_device: float  # analytic inventory
     n_devices: int = 1
     model_flops_per_device: float = 0.0   # 6*N*D (2*N*D) + attention

@@ -117,19 +117,22 @@ def make_mesh(shape, axes, device_type: str = "cpu") -> DeviceMesh:
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cpu") -> DeviceMesh:
-    return make_mesh_by_name("multi_pod" if multi_pod else "single_pod",
-                             device_type)
+    return make_mesh(*MESHES["multi_pod" if multi_pod else "single_pod"],
+                     device_type=device_type)
 
 
 def make_host_mesh(device_type: str = "cpu") -> DeviceMesh:
     """Single-device mesh for smoke tests and benchmarks."""
-    return make_mesh_by_name("host", device_type)
+    return make_mesh(*MESHES["host"], device_type=device_type)
 
 
 def make_mesh_by_name(name: str, device_type: str = "cpu") -> DeviceMesh:
-    if name not in MESHES:
-        raise ValueError(f"unknown mesh {name!r}")
-    return make_mesh(*MESHES[name], device_type=device_type)
+    if name in ("single_pod", "multi_pod"):
+        return make_production_mesh(multi_pod=name == "multi_pod",
+                                    device_type=device_type)
+    if name == "host":
+        return make_host_mesh(device_type)
+    raise ValueError(f"unknown mesh {name!r}")
 
 
 def tensor_device(mesh: DeviceMesh) -> torch.device:

@@ -38,26 +38,28 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, T, D) by w (D, H, hd) -> (B, T, H, hd): ``einsum("btd,dhk->
-    bthk")``.
+    bthk")``, taken over w's flattened (H*hd) columns.
 
-    A DTensor takes the same product over w's flattened (H*hd) columns
-    and is placed before the columns are split into heads: heads over the
-    model axis where H divides its extent, else whole.  Left to itself the
-    product may split the flattened columns where H does not divide (8 KV
-    heads of 64 on a model axis of 16), and then cannot be unflattened."""
-    if not isinstance(x, DTensor):
-        return torch.einsum("btd,dhk->bthk", x, w)
+    A DTensor's product is placed before the columns are split into
+    heads: heads over the model axis where H divides its extent, else
+    whole.  Left to itself the product may split the flattened columns
+    where H does not divide (8 KV heads of 64 on a model axis of 16), and
+    then cannot be unflattened."""
     b, t = x.shape[:2]
     d, h, hd = w.shape
     w2 = w.reshape(d, h * hd)
-    # pins w2's gradient to w2's placements (a redistribute's backward
-    # returns its input's), so it too can be split back into heads
-    w2 = w2.redistribute(w2.device_mesh, w2.placements)
+    sharded = isinstance(x, DTensor)
+    if sharded:
+        # pins w2's gradient to w2's placements (a redistribute's
+        # backward returns its input's), so it too can be split back
+        # into heads
+        w2 = w2.redistribute(w2.device_mesh, w2.placements)
     y = torch.einsum("btd,dk->btk", x, w2)
-    rules = current_rules()
-    spec = rules.spec_for(("act_batch", "act_seq", "act_heads", None),
-                          (b, t, h, hd))
-    y = y.redistribute(rules.mesh, rules.placements_for(spec[:3]))
+    if sharded:
+        rules = current_rules()
+        spec = rules.spec_for(("act_batch", "act_seq", "act_heads", None),
+                              (b, t, h, hd))
+        y = y.redistribute(rules.mesh, rules.placements_for(spec[:3]))
     return y.view(b, t, h, hd)
 
 

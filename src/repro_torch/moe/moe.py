@@ -18,8 +18,8 @@ on) runs as a sort, and took most of an MoE prefill's device time.
 Every gather is ``index_select`` on flat indices or ``gather``; their
 backward passes and the integer ``cumsum`` of the offsets have
 deterministic implementations in that mode.  The expert products are
-plain ``einsum``s, as the reference computes them outside any Pallas
-kernel.
+plain batched products (``bmm``), as the reference computes them outside
+any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -103,20 +103,11 @@ def _route(x: torch.Tensor, probs: torch.Tensor, e: int, k: int,
 
 def _experts(xin: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
-    """The expert SwiGLUs over the (B, E, C, D) buffer, as batched
-    products."""
-    h = F.silu(torch.einsum("becd,edf->becf", xin, w_gate)) \
-        * torch.einsum("becd,edf->becf", xin, w_up)
-    return torch.einsum("becf,efd->becd", h, w_down)
-
-
-def _experts_by_expert(xin: torch.Tensor, w_gate: torch.Tensor,
-                       w_up: torch.Tensor,
-                       w_down: torch.Tensor) -> torch.Tensor:
-    """``_experts`` on DTensors, as ``bmm``s over the expert dim of an
-    (E, B*C, D) buffer: the experts' split stays a split of the products'
-    batch dim, and no product's backward views a gradient that DTensor
-    left strided (which ``einsum``'s does)."""
+    """The expert SwiGLUs over the (B, E, C, D) buffer, as ``bmm``s over
+    the expert dim of an (E, B*C, D) buffer (what ``einsum("becd,edf->
+    becf")`` lowers to).  On a mesh the experts' split stays a split of
+    the products' batch dim, and no product's backward views a gradient
+    that DTensor left strided (which ``einsum``'s does)."""
     b, e, cap, d = xin.shape
     x = xin.permute(1, 0, 2, 3).reshape(e, b * cap, d)
     h = F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up)
@@ -174,8 +165,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     xin = constrain(xin, ("act_batch", "experts", None, None))
     dt = x.dtype
     ws = tuple(p[n].to(dt) for n in ("w_gate", "w_up", "w_down"))
-    yexp = (_experts_by_expert if isinstance(xin, DTensor)
-            else _experts)(xin, *ws)
+    yexp = _experts(xin, *ws)
 
     combine = functools.partial(_combine, k=k)
     if isinstance(yexp, DTensor):

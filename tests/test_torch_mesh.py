@@ -135,16 +135,41 @@ def test_sharded_trace_counts_the_global_flops(meta_flops, arch):
     meta routes and the local attention and scan twins scaled to their
     shards: the unsharded cell's count, by the peak each runs at."""
     for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
-        sharded, whole = meta_flops[f"{arch}:{shape_name}"]
+        (sharded, _), (whole, _) = meta_flops[f"{arch}:{shape_name}"]
         assert sharded == whole, shape_name
         assert whole["bfloat16"] > 0
+
+
+@pytest.mark.parametrize("arch", worker.FLOP_ARCHS)
+def test_one_device_counts_its_share_of_the_flops(meta_flops, arch):
+    """One device's traced FLOPs: the whole count on one device, and on
+    the (2, 2) mesh at least a quarter of it (more where a mesh dim
+    leaves a product replicated) and at most all of it."""
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
+        (_, device), (whole, one) = meta_flops[f"{arch}:{shape_name}"]
+        assert one == whole, shape_name
+        for dtype, n in whole.items():
+            assert n / 4 <= device[dtype] <= n, (shape_name, dtype)
+
+
+@pytest.mark.parametrize("name,share", [("split", 4), ("replicated", 2)])
+def test_one_device_counts_the_products_it_repeats(meta_flops, name,
+                                                   share):
+    """An (8, 16) by (16, 32) product, x split by rows over "data":
+    split over both mesh dims (w's columns over "model") each device runs
+    a quarter of its 8192 FLOPs; with w whole, the two devices of a model
+    group each run the same half."""
+    (sharded, device), (whole, one) = meta_flops[f"product:{name}"]
+    assert sharded == whole == one == {"bfloat16": 2 * 8 * 16 * 32,
+                                       "float32": 0.0}
+    assert device == {"bfloat16": 2 * 8 * 16 * 32 / share, "float32": 0.0}
 
 
 def test_dryrun_on_single_pod_over_the_fake_backend(tmp_path):
     """granite-3-2b ``decode_32k`` at full width on the 256-device mesh,
     traced in a process of its own: ok, finite per-device bytes that fit
-    a card, collectives counted, and the global traced FLOPs of the
-    one-card record."""
+    a card, collectives counted, the global traced FLOPs of the one-card
+    record, and one device's share of them at least 1/256."""
     subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "granite-3-2b", "--shape", "decode_32k", "--mesh", "h100",
@@ -161,8 +186,10 @@ def test_dryrun_on_single_pod_over_the_fake_backend(tmp_path):
     assert pod["fits_80gb"] and not one["fits_80gb"]
     assert pod["traced_flops_global"] == one["traced_flops_global"]
     roof = pod["roofline"]
-    assert roof["hlo_flops_per_device"] * 256 == pytest.approx(
-        one["roofline"]["hlo_flops_per_device"], rel=1e-12)
+    assert one["roofline"]["hlo_flops_per_device"] \
+        == one["traced_flops_global"]
+    assert one["traced_flops_global"] / 256 \
+        <= roof["hlo_flops_per_device"] < one["traced_flops_global"]
     assert roof["collective_wire_bytes_per_device"] > 0
     assert roof["collective_s"] > 0
     assert pod["run"]["rules"]["embed"] is None     # inference's override

@@ -19,7 +19,8 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch import convert
 from repro_torch import tree as tu
@@ -33,6 +34,7 @@ from repro_torch.distributed.sharding import (ShardingRules, TensorSpec,
 from repro_torch.launch import cell, flop_analysis, mesh
 from repro_torch.models import api
 from repro_torch.models.lm import RunConfig
+from repro_torch.optim import adamw
 
 WORLD = 4
 TOL = 1e-5
@@ -71,16 +73,33 @@ def close_trees(got, want, scale: float = 0.0) -> None:
               scale)
 
 
-def state_matches(got, want) -> None:
-    """An updated train state: the optimizer state (the moments carry
-    each leaf's gradient, linearly in m) within 1e-5 of each leaf's
-    largest value; the params within 1e-5 of the largest param.  AdamW's
-    g / (sqrt(v) + eps) turns a gradient difference far below 1e-5 of its
-    leaf into a 1e-4 difference of that element's update where |g| is
-    near eps, and the moments already hold every gradient leaf by leaf."""
+def state_matches(got, want, before) -> None:
+    """A train state updated from ``before``: the optimizer state within
+    1e-5 of each leaf's largest value (the moments carry each leaf's
+    gradient, linearly in m), and each param leaf's update (new - old)
+    within 1e-5 of the leaf's largest update plus one ulp of the updated
+    value, the rounding the stored param takes (a step-1 update is lr 3e-6
+    after the warm-up: a 1.0 norm weight's ulp is 4 % of it, a 0.02 init
+    weight's 0.06 %).  The update is held where the element's gradient is
+    above 100 eps of AdamW's (73-87 % of the elements of the reduced
+    families' trees): g / (sqrt(v) + eps) turns a gradient difference far
+    below 1e-5 of its leaf into a far larger difference of that element's
+    update where |g| is near eps (at 10 eps, up to 7.5 times the
+    tolerance)."""
     close_trees(got.opt, want.opt)
-    top = max(float(p.abs().max()) for p in tu.leaves(want.params))
-    close_trees(got.params, want.params, scale=top)
+    cfg = adamw.AdamWConfig()
+    trees = (got.params, want.params, before.params, want.opt.m)
+    for leaves in zip(*(tu.flatten_with_keys(t) for t in trees)):
+        key = leaves[0][0]
+        new, new_want, old, m = (whole(x).detach() for _, x in leaves)
+        assert new_want.dtype == torch.float32, key
+        step, want_step = (x.double().numpy() - old.double().numpy()
+                           for x in (new, new_want))
+        held = np.abs(m.double().numpy()) / (1 - cfg.beta1) > 100 * cfg.eps
+        tol = TOL * max(float(np.abs(want_step).max()), 1e-30) \
+            + np.spacing(np.abs(new_want.numpy()))
+        bad = (np.abs(step - want_step) > tol) & held
+        assert not bad.any(), (key, int(bad.sum()), bad.size)
 
 
 def in_group(rank: int, store_file: str, body, *args) -> None:
@@ -122,14 +141,15 @@ def cells_match(m, arch_name: str, run) -> None:
     arch = reduced(get_arch(arch_name))
     for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
         shape = small_shape(shape_name)
-        plain = run_step(cell.build_cell(arch, shape, "cpu", run))
+        p = cell.build_cell(arch, shape, "cpu", run)
+        plain = run_step(p)
         c = cell.build_cell(arch, shape, m, run)
         assert c.mesh is m and c.rules is not None
         sharded = run_step(c)
         if shape.kind == "train":
             for key in ("loss", "grad_norm"):
                 close(sharded[1][key], plain[1][key], what=key)
-            state_matches(sharded[0], plain[0])
+            state_matches(sharded[0], plain[0], p.args[0])
         else:
             close(sharded[0], plain[0], what="logits")
             close_trees(sharded[1], plain[1])
@@ -195,7 +215,7 @@ def capsule_on_mesh(m, out_dir: str) -> None:
     new, loss = booted.step(place(state, specs, booted.rules),
                             {k: torch.as_tensor(v) for k, v in batch.items()})
     close(loss, want_loss, what="loss")
-    state_matches(new, want_new)
+    state_matches(new, want_new, state)
     if dist.get_rank() == 0:
         with open(os.path.join(out_dir, "capsule.json"), "w") as f:
             json.dump({"hash": spec.manifest_hash,
@@ -238,7 +258,7 @@ def fsdp_gather_is_counted(m) -> None:
     def gather(w):
         with use_rules(rules):
             return constrain(w, (None, None))
-    stats = flop_analysis.traced_collectives(gather, w)
+    _, _, stats = flop_analysis.traced(gather, w)
     assert stats.op_counts == {"all-gather": 1}, stats.op_counts
     assert stats.op_bytes == {"all-gather": 64 * 16 * 4}
     assert stats.wire_bytes_per_device == (2 - 1) / 2 * 64 * 16 * 4
@@ -260,8 +280,11 @@ FLOP_ARCHS = FAMILIES + ("qwen3-moe-30b-a3b", "hymba-1.5b")
 def flops_on_meta(_: int, out: str) -> None:
     """In one process over the ``fake`` backend, a (2, 2) mesh of meta
     DTensors: each reduced family's train, prefill and decode cells, and
-    the FLOPs ``traced_ops`` counts for each against the same cell on
-    ``meta`` unsharded -> {arch:shape: [sharded, unsharded]} in ``out``."""
+    the FLOPs ``flop_analysis.traced`` counts for each (global, and one
+    device's) against the same cell on ``meta`` unsharded, and the same
+    for one product split over both mesh dims and one left replicated
+    over "model" -> {arch:shape or product:name: [sharded, unsharded]},
+    each [global, one device's], in ``out``."""
     res = {}
     run = RunConfig()
     with mesh.process_group("fake", WORLD):
@@ -270,10 +293,19 @@ def flops_on_meta(_: int, out: str) -> None:
             arch = reduced(get_arch(arch_name))
             for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
                 shape = small_shape(shape_name, seq_len=16, batch=8)
-                got = [flop_analysis.traced_ops(c.step, *c.args) for c in (
+                got = [flop_analysis.traced(c.step, *c.args)[:2] for c in (
                     cell.build_cell(arch, shape, m, run),
                     cell.build_cell(arch, shape, "meta", run))]
                 res[f"{arch_name}:{shape_name}"] = got
+        x, w = torch.empty(8, 16, device="meta"), \
+            torch.empty(16, 32, device="meta")
+        for name, w_placements in (("split", (Replicate(), Shard(1))),
+                                   ("replicated", (Replicate(),) * 2)):
+            xd = distribute_tensor(x, m, (Shard(0), Replicate()))
+            wd = distribute_tensor(w, m, w_placements)
+            res[f"product:{name}"] = [
+                flop_analysis.traced(torch.mm, xd, wd)[:2],
+                flop_analysis.traced(torch.mm, x, w)[:2]]
     with open(out, "w") as f:
         json.dump(res, f)
 
