@@ -38,12 +38,19 @@ from repro_torch.data.pipeline import Cursor, TokenStream
 from repro_torch.optim import grad_compress
 
 
-def grad_hash(tree) -> str:
-    """blake2b over every leaf's bytes, in flatten order (host copies)."""
+def grad_hash(tree, *, tel: Optional[tlm.Telemetry] = None) -> str:
+    """blake2b over every leaf's bytes, in flatten order (host copies).
+    Each leaf's copy and its digest are spans ``trainer.hash.copy`` and
+    ``trainer.hash.digest`` on ``tel`` (by default the default hub)."""
+    tel = tlm.resolve(tel)
     h = hashlib.blake2b()
     for leaf in tu.leaves(tree):
         flat = leaf.detach().reshape(-1).view(torch.uint8)
-        h.update(memoryview(flat.cpu().numpy()))
+        with tel.span("trainer.hash.copy"):
+            host = flat.cpu().numpy()
+        with tel.span("trainer.hash.digest"):
+            h.update(memoryview(host))
+        del host        # freed before the next leaf's copy (up to 0.4 GB)
     return h.hexdigest()
 
 
@@ -202,17 +209,18 @@ class VolunteerTrainer:
 
     # ---------------- one unit on one worker ----------------
     def _execute_unit(self, worker: SimWorker, unit) -> None:
-        batch = self.stream.batch(unit.payload["batch_index"])
-        loss, grads = self.grad_fn(self.state.params, batch)
-        if self.uplink:
-            self._execute_unit_uplink(worker, unit, float(loss), grads)
-            return
-        h = grad_hash(grads)
-        if worker.rng.random() < worker.corrupt_prob:
-            h = "corrupt-" + h[:16]        # wrong result; quorum rejects
-        else:
-            self._grad_cache[h] = (float(loss), grads)
-        self.sched.report(worker.worker_id, unit.unit_id, h)
+        with self.tel.span("trainer.unit"):
+            batch = self.stream.batch(unit.payload["batch_index"])
+            loss, grads = self.grad_fn(self.state.params, batch)
+            if self.uplink:
+                self._execute_unit_uplink(worker, unit, float(loss), grads)
+                return
+            h = grad_hash(grads, tel=self.tel)
+            if worker.rng.random() < worker.corrupt_prob:
+                h = "corrupt-" + h[:16]        # wrong result; quorum rejects
+            else:
+                self._grad_cache[h] = (float(loss), grads)
+            self.sched.report(worker.worker_id, unit.unit_id, h)
 
     def _execute_unit_uplink(self, worker: SimWorker, unit,
                              loss: float, grads) -> None:
@@ -226,7 +234,7 @@ class VolunteerTrainer:
         wid = worker.worker_id
         comp, _ = grad_compress.compress(grads, grad_compress.init_error(grads))
         grads = grad_compress.decompress(comp, grads)
-        h = grad_hash(grads)
+        h = grad_hash(grads, tel=self.tel)
         if worker.rng.random() < worker.corrupt_prob:
             h = "corrupt-" + h[:16]        # wrong result; quorum rejects
         else:
@@ -280,6 +288,12 @@ class VolunteerTrainer:
                 - before.get(group, {}).get(key, 0))
 
     def round(self, step: int) -> RoundStats:
+        """One synchronous round: every unit of ``step`` executed and
+        validated, the fold, the optimizer step, the snapshot when due."""
+        with self.tel.span("trainer.round"):
+            return self._round(step)
+
+    def _round(self, step: int) -> RoundStats:
         base_index = self.cursor.next_index
         for k in range(self.micro_batches):
             self.sched.submit(step * self.micro_batches + k,
@@ -329,23 +343,24 @@ class VolunteerTrainer:
         round_units = sorted(uid for uid in self._completed
                              if uid // self.micro_batches == step)
         losses, grads = [], None
-        for uid in round_units:
-            loss, g = self._grad_cache[self._completed.pop(uid)]
-            self.tmetrics.folds.inc()
-            if self.tel.tracing:
-                self.tel.event("fold", unit=uid, round=step)
-            losses.append(loss)
-            grads = g if grads is None else tu.tree_map(
-                lambda a, b: a + b, grads, g)
-        grads = tu.tree_map(lambda g: g / self.micro_batches, grads)
-        if self.compress_grads:
-            if self._compress_err is None:
-                self._compress_err = grad_compress.init_error(grads)
-            comp, self._compress_err = grad_compress.compress(
-                grads, self._compress_err)
-            grads = grad_compress.decompress(comp, grads)
-        self.state = self.apply_fn(self.state, grads)
-        self._grad_cache.clear()
+        with self.tel.span("trainer.update"):
+            for uid in round_units:
+                loss, g = self._grad_cache[self._completed.pop(uid)]
+                self.tmetrics.folds.inc()
+                if self.tel.tracing:
+                    self.tel.event("fold", unit=uid, round=step)
+                losses.append(loss)
+                grads = g if grads is None else tu.tree_map(
+                    lambda a, b: a + b, grads, g)
+            grads = tu.tree_map(lambda g: g / self.micro_batches, grads)
+            if self.compress_grads:
+                if self._compress_err is None:
+                    self._compress_err = grad_compress.init_error(grads)
+                comp, self._compress_err = grad_compress.compress(
+                    grads, self._compress_err)
+                grads = grad_compress.decompress(comp, grads)
+            self.state = self.apply_fn(self.state, grads)
+            self._grad_cache.clear()
 
         snapshot_stall_ms, snapshot_bytes = 0.0, 0
         if (self.snapshots is not None and self.snapshot_every

@@ -21,14 +21,15 @@ anything crosses the device→host boundary:
   compaction, hashing, RLE, ``put_delta`` and deferred ``max_chain``
   rebase run on a background ``SnapshotWriter`` behind a bounded queue,
   so the trainer's stall is the probe and nothing else
-  (``SnapshotInfo.stall_ms`` vs ``writer_ms``).  Plans are self-contained
-  (they carry the changed tiles + bitmap, or the full base image); the
-  writer keeps its OWN host image per tensor and advances it serially, so
-  writer and planner share no mutable state.  A half-written snapshot
-  stays invisible: the manifest registers only after every object landed,
-  and a write failure poisons the queue — the next snapshot re-bases from
-  a fresh base image, exactly the ``_mirror.clear()`` invariant of the
-  inline path.
+  (``SnapshotInfo.stall_ms``; the write is the ``snapshot.write`` span
+  on the writer's thread and the writer's ``write_ms``).  Plans are
+  self-contained (they carry the changed tiles + bitmap, or the full base
+  image); the writer keeps its OWN host image per tensor and advances it
+  serially, so writer and planner share no mutable state.  A half-written
+  snapshot stays invisible: the manifest registers only after every object
+  landed, and a write failure poisons the queue — the next snapshot
+  re-bases from a fresh base image, exactly the ``_mirror.clear()``
+  invariant of the inline path.
 * **Manifest v2** — each ``TensorEntry`` records per-block refs that are
   either raw hashes or ``"d:"`` delta refs.  v1 manifests (``hashes``)
   remain readable, so old snapshot directories restore unchanged.
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.core import telemetry as tlm
 from repro_torch.core.chunkstore import ChunkStore, sha256
 from repro_torch.core.writer import SnapshotWriter
 from repro_torch.kernels.delta_encode.ops import (DeviceMirror,
@@ -156,7 +158,6 @@ class SnapshotInfo:
     reused_chunks: int = 0
     stall_ms: float = 0.0     # trainer-visible time (plan [+ write inline])
     plan_ms: float = 0.0      # device probe + changed-tile transfer
-    writer_ms: float = 0.0    # background chunk/hash/RLE/store/rebase time
 
 
 @dataclass
@@ -187,7 +188,7 @@ class SnapshotManager:
                  delta: bool = True,
                  telemetry=None):
         self.store = store
-        self.telemetry = telemetry
+        self.tel = tlm.resolve(telemetry)    # spans snapshot.plan, .write
         self.root = Path(root) if root is not None else None
         if self.root is not None:
             (self.root / "manifests").mkdir(parents=True, exist_ok=True)
@@ -203,7 +204,7 @@ class SnapshotManager:
         self.manifests: Dict[str, Manifest] = {}
         self.order: List[str] = []                 # snapshot chain
         self._writer = SnapshotWriter(self._write_bg, depth=writer_depth,
-                                      telemetry=telemetry) \
+                                      telemetry=self.tel) \
             if async_mode else None
         self._futures: deque[Future] = deque()
         self.last_info: Optional[SnapshotInfo] = None
@@ -236,7 +237,8 @@ class SnapshotManager:
         t0 = time.time()
         tp = time.perf_counter()
         try:
-            plan = self._plan_state(state)
+            with self.tel.span("snapshot.plan"):
+                plan = self._plan_state(state)
         except BaseException:
             # a partial plan has already advanced some tensors' mirrors
             # while _prev_refs still points at the old chunks; drop both so
@@ -335,7 +337,8 @@ class SnapshotManager:
     # ------------------------------------------------------------------
     def _write_sync(self, plan, step, aux, t0, plan_ms) -> SnapshotInfo:
         try:
-            info = self._write_inner(plan, step, aux, t0)
+            with self.tel.span("snapshot.write"):
+                info = self._write_inner(plan, step, aux, t0)
         except BaseException:
             # the probe already swapped the device mirror forward; a
             # half-written store would make the NEXT diff record stale
@@ -349,11 +352,10 @@ class SnapshotManager:
         return info
 
     def _write_bg(self, plan, step, aux, t0, plan_ms) -> SnapshotInfo:
-        tw = time.perf_counter()
-        info = self._write_inner(plan, step, aux, t0)
+        with self.tel.span("snapshot.write"):
+            info = self._write_inner(plan, step, aux, t0)
         info.plan_ms = plan_ms
         info.stall_ms = plan_ms              # trainer paid only the plan
-        info.writer_ms = (time.perf_counter() - tw) * 1e3
         return info
 
     def _write_inner(self, plan: List[_TensorPlan], step: int, aux: dict,

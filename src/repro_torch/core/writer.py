@@ -71,6 +71,7 @@ class SnapshotWriter:
         fut: Future = Future()
         t0 = time.perf_counter()
         self._q.put((fut, args))
+        self.tel.add_span("snapshot.backpressure", t0)
         self.metrics.backpressure_ms.inc((time.perf_counter() - t0) * 1e3)
         self.metrics.submitted.inc()
         return fut

@@ -11,6 +11,16 @@ kernel), then decoded token by token with the KV and SSM caches:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-medium --device cpu
 
+``--slots N`` serves the same prompts through the continuous-batching
+``ServingEngine`` on ``N`` decode slots instead (decoder-only families,
+greedy), and ``--telemetry DIR`` writes the telemetry hub's wall-clock
+spans (the engine's ``engine.queue``, ``engine.admit``, ``engine.step``
+and ``engine.step.dispatch``) as ``spans.jsonl``, with ``metrics.prom``,
+into ``DIR`` at exit:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --slots 4 --requests 8 --telemetry /tmp/serve_tel --device cpu
+
 The CLI serves ``reduced(get_arch(arch))``; ``build_server`` takes any
 ``ArchConfig`` (``chip_smoke.py`` passes granite-3-2b, falcon-mamba-7b,
 hymba-1.5b, deepseek-moe-16b and seamless-m4t-medium at full width).  Runs on ``cuda`` unless
@@ -27,12 +37,14 @@ import argparse
 import json
 import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig, get_arch, reduced
+from repro_torch.core import telemetry as tlm
 from repro_torch.distributed.sharding import init_tree
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import api
@@ -49,6 +61,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="serve through the continuous-batching "
+                         "ServingEngine on this many decode slots "
+                         "(decoder-only, greedy); 0 (default) prefills "
+                         "every request as one batch")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="write the telemetry hub's wall-clock spans "
+                         "(spans.jsonl) and metrics.prom into DIR at exit")
     return ap.parse_args(argv)
 
 
@@ -87,6 +107,12 @@ def build_server(cfg: ArchConfig, args: argparse.Namespace) -> Server:
                   api.make_decode_step(cfg, run))
 
 
+def _prompts(cfg: ArchConfig, args: argparse.Namespace, rng) -> np.ndarray:
+    """``--requests`` prompts of ``--prompt-len`` random tokens."""
+    return rng.integers(0, cfg.vocab_size,
+                        (args.requests, args.prompt_len)).astype(np.int32)
+
+
 def serve(server: Server, args: argparse.Namespace) -> dict:
     """Prefill ``--requests`` prompts of ``--prompt-len`` random tokens as
     one batch (an encoder–decoder's with as many random frames each,
@@ -94,8 +120,7 @@ def serve(server: Server, args: argparse.Namespace) -> dict:
     does), then decode ``--gen`` - 1 more tokens; -> summary."""
     cfg, dev = server.cfg, server.device
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (args.requests, args.prompt_len)).astype(np.int32)
+    prompts = _prompts(cfg, args, rng)
     batch = {"tokens": prompts}
     if cfg.enc_dec:
         batch["frames"] = rng.standard_normal(
@@ -148,10 +173,52 @@ def serve(server: Server, args: argparse.Namespace) -> dict:
     return summary
 
 
+def serve_engine(server: Server, args: argparse.Namespace) -> dict:
+    """Serve the same ``--requests`` prompts through ``ServingEngine`` on
+    ``--slots`` slots, ``--gen`` greedy tokens each, admitted as slots
+    free; -> summary."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = server.cfg
+    prompts = _prompts(cfg, args, np.random.default_rng(args.seed))
+    engine = ServingEngine(cfg, server.params, slots=args.slots,
+                           max_len=args.prompt_len + args.gen,
+                           run=server.run)
+    t0 = time.perf_counter()
+    done = engine.run_queue([Request(i, p, args.gen)
+                             for i, p in enumerate(prompts)])
+    t_run = time.perf_counter() - t0
+    done.sort(key=lambda r: r.request_id)
+    tokens = [r.output for r in done]
+    summary = {
+        "arch": cfg.name, "device": str(server.device),
+        "requests": args.requests, "slots": args.slots, "run_s": t_run,
+        "decode_steps": engine.stats["decode_steps"],
+        "tokens_per_s": sum(map(len, tokens)) / max(t_run, 1e-9),
+        "ttft_max_s": max(r.first_token_s for r in done),
+        "sample_output": tokens[0][:8],
+        "tokens": tokens,
+    }
+    print(json.dumps({k: v for k, v in summary.items() if k != "tokens"},
+                     indent=2))
+    return summary
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = reduced(get_arch(args.arch))
-    return serve(build_server(cfg, args), args)
+    if args.slots and (cfg.enc_dec or args.temperature > 0):
+        raise SystemExit("--slots serves decoder-only families greedily")
+    tel_dir = Path(args.telemetry) if args.telemetry else None
+    if tel_dir is not None:
+        tel_dir.mkdir(parents=True, exist_ok=True)
+        tlm.set_default(tlm.Telemetry())
+    server = build_server(cfg, args)
+    summary = (serve_engine if args.slots else serve)(server, args)
+    if tel_dir is not None:
+        tel = tlm.get_default()
+        tel.dump_spans_jsonl(tel_dir / "spans.jsonl")
+        (tel_dir / "metrics.prom").write_text(tel.prometheus())
+    return summary
 
 
 if __name__ == "__main__":

@@ -18,11 +18,12 @@ an uninterrupted run's bit for bit.
 server's chunk store as delta refs (the image diffed on the card);
 ``--compress-grads``, ``--replicas N``, ``--edge-caches N``, ``--shards
 N`` with ``--rebalance`` and ``--telemetry DIR`` work as in the reference
-launcher.  ``--preset full`` keeps the assigned architecture and refuses
-here, pointing to the dry run (``python -m repro_torch.launch.dryrun``),
-which traces it at full width on the meta device.  ``--arch`` takes any
-decoder-only family: dense, MoE (deepseek-moe-16b, qwen3-moe-30b-a3b),
-SSM (falcon-mamba-7b) and hybrid
+launcher; ``--telemetry`` also writes the hub's wall-clock spans as
+``spans.jsonl``.  ``--preset full`` keeps the assigned architecture and
+refuses here, pointing to the dry run (``python -m
+repro_torch.launch.dryrun``), which traces it at full width on the meta
+device.  ``--arch`` takes any decoder-only family: dense, MoE
+(deepseek-moe-16b, qwen3-moe-30b-a3b), SSM (falcon-mamba-7b) and hybrid
 (hymba-1.5b); an encoder–decoder (seamless-m4t-medium) is refused up
 front, since the token stream yields no frames (the reference's launcher
 fails on them at its first unit).
@@ -141,8 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="bounded queue depth for --async-writer")
     ap.add_argument("--telemetry", default=None, metavar="DIR",
                     help="enable lifecycle tracing; writes events.jsonl "
-                         "(flight recorder), metrics.prom (Prometheus "
-                         "text exposition) and trace_summary.txt "
+                         "(flight recorder), spans.jsonl (wall-clock "
+                         "spans), metrics.prom (Prometheus text "
+                         "exposition) and trace_summary.txt "
                          "(trace_reduce post-mortem) into DIR at exit")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--outdir", default=None)
@@ -370,6 +372,7 @@ def train(sess: Session, args: argparse.Namespace) -> dict:
     if sess.tel_dir is not None:
         tel = tlm.get_default()
         n_events = trainer.dump_flight_recorder(sess.tel_dir / "events.jsonl")
+        tel.dump_spans_jsonl(sess.tel_dir / "spans.jsonl")
         (sess.tel_dir / "metrics.prom").write_text(tel.prometheus())
         report = tlm.trace_reduce(tel)
         (sess.tel_dir / "trace_summary.txt").write_text(

@@ -11,6 +11,13 @@ compile cache has no counterpart; the ``prefills`` counter stays.
 
 The engine holds one copy of the params in the compute dtype, made once
 (see ``lm.cast_tree``).
+
+Requests are timed from ``Request.submitted``: the caller's stamp of its
+hand-off, or, where the caller set none, the moment ``run_queue`` is
+handed the request.  The default telemetry hub records the spans
+``engine.queue`` (submitted to admission), ``engine.admit``,
+``engine.step`` (a decode step with its token readback) and, inside the
+callable stored as ``_decode``, ``engine.step.dispatch``.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ class Request:
     request_id: int
     prompt: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int
-    submitted: float = field(default_factory=time.perf_counter)
+    submitted: Optional[float] = None    # perf_counter of the hand-off
     # filled by the engine
     output: List[int] = field(default_factory=list)
     first_token_s: Optional[float] = None
@@ -50,7 +57,13 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.run = run
-        self._decode = api.make_decode_step(cfg, run)
+        tel = self.tel = tlm.get_default()
+        decode = api.make_decode_step(cfg, run)
+
+        def dispatch(*args):   # holds no reference to the engine
+            with tel.span("engine.step.dispatch"):
+                return decode(*args)
+        self._decode = dispatch
         self._prefill = api.make_prefill_step(cfg, max_len, run)
         device = self.params["embed"].device
         # pool caches: batch dim = slots
@@ -59,12 +72,13 @@ class ServingEngine:
             api.cache_specs(cfg, slots, max_len))
         self.lengths = np.zeros(slots, np.int32)      # per-slot position
         self.active: List[Optional[Request]] = [None] * slots
-        scope = tlm.get_default().scope("serving")
+        scope = self.tel.scope("serving")
         self.metrics = scope.counters("served", "decode_steps", "prefills")
         self.stats = scope.view()
 
     # ------------------------------------------------------------------
     def _admit(self, slot: int, req: Request) -> None:
+        admitted = self.tel.add_span("engine.queue", req.submitted)
         t = len(req.prompt)
         logits, cache = self._prefill(self.params,
                                       {"tokens": req.prompt[None, :]})
@@ -79,6 +93,7 @@ class ServingEngine:
         req.first_token_s = time.perf_counter() - req.submitted
         self.lengths[slot] = t
         self.active[slot] = req
+        self.tel.add_span("engine.admit", admitted)
 
     def _retire(self, slot: int) -> Request:
         req = self.active[slot]
@@ -90,7 +105,12 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def run_queue(self, requests: List[Request]) -> List[Request]:
-        """Serve a queue to completion; returns finished requests."""
+        """Serve a queue to completion; returns finished requests.  A
+        request without a ``submitted`` stamp is stamped now."""
+        handed = time.perf_counter()
+        for req in requests:
+            if req.submitted is None:
+                req.submitted = handed
         pending = list(requests)
         finished: List[Request] = []
         while pending or any(r is not None for r in self.active):
@@ -104,12 +124,13 @@ class ServingEngine:
             for slot, req in enumerate(self.active):
                 if req is not None:
                     tokens[slot, 0] = req.output[-1]
-            logits, self.caches = self._decode(
-                self.params, self.caches,
-                {"tokens": tokens, "index": self.lengths.copy()})
-            self.metrics.decode_steps.inc()
-            nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size],
-                               dim=-1).cpu().numpy()
+            with self.tel.span("engine.step"):
+                logits, self.caches = self._decode(
+                    self.params, self.caches,
+                    {"tokens": tokens, "index": self.lengths.copy()})
+                self.metrics.decode_steps.inc()
+                nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size],
+                                   dim=-1).cpu().numpy()
             for slot, req in enumerate(self.active):
                 if req is None:
                     continue
