@@ -14,9 +14,9 @@ kernel), then decoded token by token with the KV and SSM caches:
 ``--slots N`` serves the same prompts through the continuous-batching
 ``ServingEngine`` on ``N`` decode slots instead (decoder-only families,
 greedy), and ``--telemetry DIR`` writes the telemetry hub's wall-clock
-spans (the engine's ``engine.queue``, ``engine.admit``, ``engine.step``
-and ``engine.step.dispatch``) as ``spans.jsonl``, with ``metrics.prom``,
-into ``DIR`` at exit:
+spans (the engine's ``engine.queue``, ``engine.admit``, ``engine.step``,
+``engine.step.dispatch`` and, on the card, ``engine.step.replay``) as
+``spans.jsonl``, with ``metrics.prom``, into ``DIR`` at exit:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --slots 4 --requests 8 --telemetry /tmp/serve_tel --device cpu

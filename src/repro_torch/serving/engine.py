@@ -12,21 +12,31 @@ compile cache has no counterpart; the ``prefills`` counter stays.
 The engine holds one copy of the params in the compute dtype, made once
 (see ``lm.cast_tree``).
 
+On the card the decode step is one CUDA graph (``DecodeGraph``), captured
+at the engine's first decode step over its own params and pool caches
+and replayed at every later step; anywhere else (the CPU, a mesh's
+DTensor leaves) it runs eagerly.  The serving scope's
+``decode_graph_replays`` counts the steps that replayed it.
+
 Requests are timed from ``Request.submitted``: the caller's stamp of its
 hand-off, or, where the caller set none, the moment ``run_queue`` is
 handed the request.  The default telemetry hub records the spans
 ``engine.queue`` (submitted to admission), ``engine.admit``,
 ``engine.step`` (a decode step with its token readback) and, inside the
-callable stored as ``_decode``, ``engine.step.dispatch``.
+callable stored as ``_decode``, ``engine.step.dispatch``, and within it
+``engine.step.replay`` around a graph's replay.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ArchConfig
@@ -47,6 +57,121 @@ class Request:
     done_s: Optional[float] = None
 
 
+def graphable(params, caches) -> bool:
+    """Whether a decode step over ``params`` and ``caches`` may be captured
+    as a CUDA graph: every leaf a plain tensor on a CUDA device (a mesh's
+    DTensor leaves, and the CPU, run eagerly)."""
+    return all(x.is_cuda and not isinstance(x, DTensor)
+               for x in tu.leaves(params) + tu.leaves(caches))
+
+
+class _NumbersAsFills(TorchFunctionMode):
+    """``torch.tensor(<number>, device=<card>)`` as ``torch.full``: the
+    same value, held by a fill kernel's argument.  ``torch.tensor`` copies
+    the number from pageable host memory and waits for the copy, which a
+    CUDA graph's capture refuses (``layers.rotary`` makes its ``theta`` so
+    inside the decode step)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func is torch.tensor and len(args) == 1
+                and isinstance(args[0], (int, float))
+                and set(kwargs) <= {"dtype", "device"}
+                and torch.device(kwargs.get("device", "cpu")).type == "cuda"):
+            return torch.full((), args[0], **kwargs)
+        return func(*args, **kwargs)
+
+
+class DecodeGraph:
+    """A decode step ``decode(params, caches, batch) -> (logits, caches)``
+    replayed as one CUDA graph, bound to the params and caches of its
+    first call.
+
+    The first call, where ``graphable`` holds, runs the step eagerly on
+    static int32 device buffers for ``tokens`` and ``index`` (the real
+    step, which also warms cuBLAS and the allocator), then captures the
+    same call with ``torch.cuda.graph`` (numbers put on the card as fills,
+    ``_NumbersAsFills``).  Capture records and executes nothing, so the
+    step's in-place cache writes are not applied twice.  A later call
+    whose params and cache leaves are the very tensors captured, with
+    inputs of the captured shapes, copies its inputs through a pinned host
+    buffer into the static buffers and replays the graph; its logits are
+    the graph's static output, which the next replay overwrites, so a
+    caller reads them before its next call.  The caches are updated in
+    place and returned, as the eager step does.  Every other call, and
+    every call after a capture that failed, runs the step eagerly.
+
+    ``replays`` (a counter) counts the replays, each inside a span
+    ``engine.step.replay`` on ``tel``.  The graph's private memory pool
+    holds one step's intermediates; the captured params and caches are held
+    while the graph lives, since it reads and writes their memory."""
+
+    def __init__(self, decode, replays, tel):
+        self.decode, self.replays, self.tel = decode, replays, tel
+        self.tried = False
+        self.graph = None
+
+    def __call__(self, params, caches, batch: dict):
+        inputs = [torch.as_tensor(batch[k]) for k in ("tokens", "index")]
+        if self.graph is not None and self._bound(params, caches, inputs):
+            self._stage(inputs)
+            with self.tel.span("engine.step.replay"):
+                self.graph.replay()
+            self.replays.inc()
+            return self.logits, caches
+        if not self.tried:
+            self.tried = True
+            if graphable(params, caches):
+                return self._capture(params, caches, inputs)
+        return self.decode(params, caches, batch)
+
+    def _bound(self, params, caches, inputs) -> bool:
+        leaves = tu.leaves(params) + tu.leaves(caches)
+        return (len(leaves) == len(self.leaves)
+                and all(a is b for a, b in zip(leaves, self.leaves))
+                and [x.shape for x in inputs] == [x.shape for x in
+                                                  self.static])
+
+    def _stage(self, inputs) -> None:
+        """``inputs`` into the static buffers: host values into the pinned
+        buffer (once its last copy to the card is done), then one
+        asynchronous copy on the current stream, ahead of the replay."""
+        self.copied.synchronize()
+        at = 0
+        for x in inputs:
+            self.host[at:at + x.numel()].copy_(x.reshape(-1))
+            at += x.numel()
+        self.flat.copy_(self.host, non_blocking=True)
+        self.copied.record()
+
+    def _capture(self, params, caches, inputs):
+        device = params["embed"].device
+        sizes = [x.numel() for x in inputs]
+        self.host = torch.empty(sum(sizes), dtype=torch.int32,
+                                pin_memory=True)
+        self.flat = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+        self.static = [v.view(x.shape) for v, x in
+                       zip(self.flat.split(sizes), inputs)]
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        self._stage(inputs)
+        batch = dict(zip(("tokens", "index"), self.static))
+        out = self.decode(params, caches, batch)
+        stream, graph = torch.cuda.current_stream(), torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph), _NumbersAsFills():
+                self.logits, _ = self.decode(params, caches, batch)
+        except RuntimeError as err:
+            # a failed capture can leave its side stream current
+            torch.cuda.set_stream(stream)
+            warnings.warn(f"the decode step runs eagerly: its capture as "
+                          f"a CUDA graph failed ({err})")
+            return out
+        self.graph = graph
+        self.leaves = tu.leaves(params) + tu.leaves(caches)
+        return out
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_len: int = 256, run: RunConfig = RunConfig()):
@@ -58,7 +183,12 @@ class ServingEngine:
         self.max_len = max_len
         self.run = run
         tel = self.tel = tlm.get_default()
-        decode = api.make_decode_step(cfg, run)
+        scope = tel.scope("serving")
+        self.metrics = scope.counters("served", "decode_steps", "prefills",
+                                      "decode_graph_replays")
+        self.stats = scope.view()
+        decode = DecodeGraph(api.make_decode_step(cfg, run),
+                             self.metrics.decode_graph_replays, tel)
 
         def dispatch(*args):   # holds no reference to the engine
             with tel.span("engine.step.dispatch"):
@@ -72,9 +202,6 @@ class ServingEngine:
             api.cache_specs(cfg, slots, max_len))
         self.lengths = np.zeros(slots, np.int32)      # per-slot position
         self.active: List[Optional[Request]] = [None] * slots
-        scope = self.tel.scope("serving")
-        self.metrics = scope.counters("served", "decode_steps", "prefills")
-        self.stats = scope.view()
 
     # ------------------------------------------------------------------
     def _admit(self, slot: int, req: Request) -> None:

@@ -472,6 +472,94 @@ def test_engine_on_the_card_prefills_through_the_kernel(cuda, arch):
         assert len(req.output) == req.max_new_tokens
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
+                                  "hymba-1.5b", "deepseek-moe-16b"])
+def test_the_engines_decode_graph_serves_the_eager_engines_tokens(
+        cuda, arch, monkeypatch):
+    """The engine on the card captures its decode step at the first step
+    and replays it at every later one: the same tokens and the same final
+    pool caches, bit for bit, as an engine whose eligibility check is
+    patched to refuse the graph (the same kernels on the same values).  A
+    call with other caches runs eagerly and leaves the captured pool as it
+    was."""
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.models import api
+    from repro_torch.models.lm import RunConfig
+    from repro_torch.serving import engine as serving
+    cfg = reduced(get_arch(arch))
+    params = init_tree(api.param_specs(cfg),
+                       torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    run = RunConfig(remat="none", compute_dtype=torch.bfloat16)
+
+    def serve():
+        rng = np.random.default_rng(0)
+        reqs = [serving.Request(i, rng.integers(0, cfg.vocab_size, plen)
+                                .astype(np.int32), gen)
+                for i, (plen, gen) in enumerate([(8, 6), (12, 4), (5, 9),
+                                                 (20, 3), (7, 5)])]
+        engine = serving.ServingEngine(cfg, params, slots=2, max_len=64,
+                                       run=run)
+        done = engine.run_queue(reqs)
+        torch.cuda.synchronize()
+        return engine, {r.request_id: r.output for r in done}
+
+    graphed, tokens = serve()
+    with monkeypatch.context() as m:
+        m.setattr(serving, "graphable", lambda params, caches: False)
+        eager, want = serve()
+    steps = graphed.stats["decode_steps"]
+    assert steps == eager.stats["decode_steps"] and steps > 2
+    assert graphed.stats["decode_graph_replays"] == steps - 1
+    assert eager.stats["decode_graph_replays"] == 0
+    assert tokens == want
+    for a, b in zip(tu.leaves(graphed.caches), tu.leaves(eager.caches)):
+        assert torch.equal(a, b)
+
+    pool = tu.tree_map(torch.clone, graphed.caches)
+    other = tu.tree_map(torch.clone, graphed.caches)
+    batch = {"tokens": np.ones((2, 1), np.int32),
+             "index": np.asarray([3, 5], np.int32)}
+    logits, out = graphed._decode(graphed.params, other, batch)
+    torch.cuda.synchronize()
+    assert out is other and logits.shape[:2] == (2, 1)
+    assert graphed.stats["decode_graph_replays"] == steps - 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(tu.leaves(graphed.caches), tu.leaves(pool)))
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tu.leaves(other), tu.leaves(pool)))
+
+
+def test_a_decode_step_that_cannot_be_captured_runs_eagerly(cuda):
+    """A step that reads a value back to the host cannot be captured: the
+    first call's eager step stands, a warning says why, the current stream
+    is the caller's again, and every later call runs eagerly, unreplayed
+    (the caches take each step once)."""
+    from repro_torch.core.telemetry import Counter, Telemetry
+    from repro_torch.serving.engine import DecodeGraph
+
+    def decode(params, caches, batch):
+        n = int(batch["index"].sum())            # a readback
+        caches["c"].add_(params["embed"] * n)
+        return caches["c"] * 2, caches
+    params = {"embed": torch.ones(4, device=cuda)}
+    caches = {"c": torch.zeros(4, device=cuda)}
+    batch = {"tokens": np.zeros((4, 1), np.int32),
+             "index": np.arange(4, dtype=np.int32)}
+    replays = Counter("decode_graph_replays")
+    graph = DecodeGraph(decode, replays, Telemetry())
+    stream = torch.cuda.current_stream()
+    with pytest.warns(UserWarning, match="runs eagerly"):
+        first, _ = graph(params, caches, batch)
+    assert torch.cuda.current_stream() == stream
+    second, out = graph(params, caches, batch)
+    torch.cuda.synchronize()
+    assert out is caches and graph.graph is None and replays.value == 0
+    assert first.tolist() == [12.0] * 4 and second.tolist() == [24.0] * 4
+    assert caches["c"].tolist() == [12.0] * 4
+
+
 PCOR_CASES = [(150, 321), (256, 128), (100, 50), (64, 7), (1000, 321),
               (129, 1)]
 

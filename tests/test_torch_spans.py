@@ -252,3 +252,20 @@ def test_run_queue_stamps_only_requests_without_a_hand_off(hub):
     eng.run_queue([mine, theirs])
     assert mine.submitted < before <= theirs.submitted
     assert mine.first_token_s >= 1.0 > theirs.first_token_s
+
+
+def test_an_engine_on_the_cpu_decodes_eagerly(hub):
+    """Off the card the decode step is never captured: every step runs
+    eagerly, no replay is counted and no ``engine.step.replay`` span is
+    recorded."""
+    from repro_torch.serving.engine import Request, graphable
+    cfg, eng = _engine()
+    assert not graphable(eng.params, eng.caches)
+    rng = np.random.default_rng(1)
+    eng.run_queue([Request(i, rng.integers(0, cfg.vocab_size, size=4 + i)
+                           .astype(np.int32), 4) for i in range(3)])
+    assert eng.stats["decode_steps"] > 0
+    assert eng.stats["decode_graph_replays"] == 0
+    assert len(_named(hub, "engine.step.dispatch")) == \
+        eng.stats["decode_steps"]
+    assert not _named(hub, "engine.step.replay")
