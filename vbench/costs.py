@@ -4,13 +4,17 @@ move them: a kernel's work as ``chip_smoke.py`` counts it (``attn_work``,
 ``ssm_work``, the delta probe's bytes) and a step's model FLOPs as
 ``launch/costmodel.py`` ``analytic_cost`` counts them (6 N D for training,
 2 N D for inference, N the matmul parameters without the embedding
-gather, plus the causal attention term).
+gather, plus the causal attention term), N and the layers that attend as
+the configuration's family counts them (``reference/families/``), from
+the blocks' counts below.
 
 Peaks are NVIDIA's published figures for the H100 SXM (data sheet, dense,
 no sparsity), which assume the card's full 700 W power limit; the result
 line carries the card's ``power.limit`` beside every share.
 """
 from __future__ import annotations
+
+from vbench.reference import families
 
 PEAK_BF16_FLOPS = 989e12       # tensor cores, bf16/fp16 dense
 PEAK_FP32_FLOPS = 67e12        # float32 outside the tensor cores
@@ -74,29 +78,43 @@ def head_dim(c: dict) -> int:
     return c.get("head_dim") or c["hidden_size"] // c["num_attention_heads"]
 
 
-def matmul_params(c: dict) -> int:
-    """Parameters that take part in a matrix product per token: every
-    layer's projections (attention, feed-forward, the SSM's), and the
-    output head; the input embedding's gather is left out, and a tied
-    table counts once, as the head."""
-    d, v = c["hidden_size"], c["vocab_size"]
+def attention_params(c: dict) -> int:
+    """One attention layer's projections: q, k, v and the output."""
+    d = c["hidden_size"]
     h, kh, hd = c["num_attention_heads"], c["num_key_value_heads"], head_dim(c)
-    layer = d * h * hd + 2 * d * kh * hd + h * hd * d
-    layer += 3 * d * c["intermediate_size"]
-    if c["family"] == "hybrid":
-        di, n = c["mamba_expand"] * d, c["mamba_d_state"]
-        r, dc = c["mamba_dt_rank"], c["mamba_d_conv"]
-        layer += (d * 2 * di + di * dc + di * (r + 2 * n) + r * di + di * n
-                  + di + di * d)
-    return c["num_hidden_layers"] * layer + d * v
+    return d * h * hd + 2 * d * kh * hd + h * hd * d
+
+
+def swiglu_params(c: dict, width: int) -> int:
+    """One SwiGLU feed-forward of ``width``: gate, up and down."""
+    return 3 * c["hidden_size"] * width
+
+
+def mamba_params(c: dict) -> int:
+    """One Mamba 1 mixer: in, conv, x, dt and out projections, A and D."""
+    d = c["hidden_size"]
+    di, n = c["mamba_expand"] * d, c["mamba_d_state"]
+    r, dc = c["mamba_dt_rank"], c["mamba_d_conv"]
+    return (d * 2 * di + di * dc + di * (r + 2 * n) + r * di + di * n
+            + di + di * d)
+
+
+def matmul_params(c: dict) -> int:
+    """Parameters that take part in a matrix product per token, as the
+    configuration's family counts them (``matmul_params`` of
+    ``reference/families/<family>.py``): every layer's projections, of an
+    MoE layer only the experts a token is routed to and the shared ones,
+    and the output head; the input embedding's gather is left out."""
+    return families.of(c).matmul_params(c)
 
 
 def attn_fwd_flops(c: dict, t_query: int, keys_before: int) -> float:
     """Forward attention operations of ``t_query`` new positions that
-    follow ``keys_before`` cached ones, causal, over every layer."""
+    follow ``keys_before`` cached ones, causal, over every layer that
+    attends (the family's ``attention_layers``)."""
     h, hd = c["num_attention_heads"], head_dim(c)
     pairs = t_query * keys_before + t_query * (t_query + 1) / 2
-    return c["num_hidden_layers"] * 4 * h * hd * pairs
+    return families.of(c).attention_layers(c) * 4 * h * hd * pairs
 
 
 def train_flops(c: dict, batch: int, seq: int) -> float:

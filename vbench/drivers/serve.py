@@ -61,7 +61,7 @@ class Session:
         self.cfg = arch_config(c)
         specs = api.param_specs(self.cfg)
         shapes = {k: tuple(s.shape) for k, s in state_keys(specs)}
-        self.w = weights.make(shapes, run.seed, device, torch.bfloat16)
+        self.w = weights.make(c, shapes, run.seed, device, torch.bfloat16)
         self.params = tu.unflatten_like(specs, self.w)
         self.engine = ServingEngine(self.cfg, self.params, slots=tr["slots"],
                                     max_len=tr["max_len"])
@@ -222,12 +222,13 @@ def check(ses: Session, run: Run, control: Precision = None) -> dict:
     gc.collect()
     if ses.device.type == "cuda":
         torch.cuda.empty_cache()
-    w32 = {dotted(k): x.float() for k, x in ses.w.items()}
+    # the served bf16 weights; the reference upcasts each where it uses it
+    w = {dotted(k): x for k, x in ses.w.items()}
     ses.w = ses.params = None
     gaps, ctl = [], []
     with no_tf32():
         for r in picked:
-            g = ref_serve.gaps(ses.c, w32, r.prompt.tolist(), r.output,
+            g = ref_serve.gaps(ses.c, w, r.prompt.tolist(), r.output,
                                control)
             gaps += g["served"]
             ctl += g.get("control", [])

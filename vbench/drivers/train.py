@@ -31,6 +31,7 @@ import torch
 
 from vbench import costs, stats, weights
 from vbench.harness import Run
+from vbench.reference import families
 from vbench.reference import train as ref_train
 from vbench.reference.precision import F32, Precision, no_tf32
 
@@ -40,28 +41,20 @@ SILENT = 1e-3         # a leaf whose reference gradient is under this share
 
 
 def arch_config(c: dict):
-    """The program's ``ArchConfig`` for a configuration file, every width
-    and count checked against the file."""
-    from repro_torch.configs.base import SSMConfig, get_arch
+    """The program's ``ArchConfig`` for a configuration file: the port's
+    ``arch``, which has to be of the family's ``PROGRAM_FAMILY``, with the
+    fields the family's file gives (``arch_fields``; a nested config's as
+    a dict of its own)."""
+    from repro_torch.configs.base import get_arch
+    fam = families.of(c)
     base = get_arch(c["arch"])
-    kw = dict(n_layers=c["num_hidden_layers"], d_model=c["hidden_size"],
-              n_heads=c["num_attention_heads"],
-              n_kv_heads=c["num_key_value_heads"],
-              d_ff=c["intermediate_size"], vocab_size=c["vocab_size"],
-              head_dim=costs.head_dim(c), rope_theta=c["rope_theta"],
-              rms_eps=c["rms_norm_eps"],
-              tie_embeddings=c["tie_word_embeddings"],
-              qkv_bias=c["attention_bias"], window=c.get("sliding_window", 0))
-    if c["family"] == "hybrid":
-        kw["ssm"] = SSMConfig(d_state=c["mamba_d_state"],
-                              d_conv=c["mamba_d_conv"],
-                              expand=c["mamba_expand"],
-                              dt_rank=c["mamba_dt_rank"])
-    cfg = dataclasses.replace(base, **kw)
-    if cfg.family != c["family"] or cfg.is_moe:
-        raise SystemExit(f"vbench: {c['arch']} is {cfg.family}, the file "
-                         f"says {c['family']}")
-    return cfg
+    if base.family != fam.PROGRAM_FAMILY:
+        raise SystemExit(f"vbench: {c['arch']} is {base.family}, family "
+                         f"{c['family']} runs {fam.PROGRAM_FAMILY}")
+    kw = {k: dataclasses.replace(getattr(base, k), **v)
+          if isinstance(v, dict) else v
+          for k, v in fam.arch_fields(c).items()}
+    return dataclasses.replace(base, **kw)
 
 
 def state_keys(tree) -> list:
@@ -110,7 +103,7 @@ class Session:
         self.trainer = self.sess.trainer
         self.shapes = {k: tuple(x.shape)
                        for k, x in state_keys(self.trainer.state.params)}
-        w = weights.make(self.shapes, run.seed, device, torch.float32)
+        w = weights.make(c, self.shapes, run.seed, device, torch.float32)
         with torch.no_grad():
             for k, x in state_keys(self.trainer.state.params):
                 x.copy_(w[k])
@@ -147,8 +140,8 @@ class Session:
                     for k, x in state_keys(self.trainer.state.opt.m)}
                 self.first_grad = ref_train.split_norms(self.first_grad_t)
             if s == FOLLOWED - 1:
-                w0 = weights.make(self.shapes, self.run.seed, self.device,
-                                  torch.float32)
+                w0 = weights.make(self.c, self.shapes, self.run.seed,
+                                  self.device, torch.float32)
                 self.change = ref_train.split_norms({
                     ref_train.dotted(k): x - w0[k]
                     for k, x in state_keys(self.trainer.state.params)})
@@ -276,7 +269,7 @@ def reference(ses: Session, prec: Precision) -> dict:
     rounds = [[ref_train.token_batch(c["vocab_size"], tr["seq"], tr["batch"],
                                      seed, r * tr["micro"] + u)
                for u in range(tr["micro"])] for r in range(FOLLOWED)]
-    w = weights.make(ses.shapes, seed, ses.device, torch.float32)
+    w = weights.make(c, ses.shapes, seed, ses.device, torch.float32)
     w0 = {ref_train.dotted(k): x for k, x in w.items()}
     opt = dict(tr["optimizer"])
     with no_tf32():

@@ -16,6 +16,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
+from vbench.reference import families
+
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -81,8 +83,9 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     here = root / "vbench"
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     layer = [m for m in bench["per_layer"] if name in m["workloads"]]
-    return Cell(name=name, chips=w["chips"],
-                config=load_json(root / cfg["file"]),
+    config = load_json(root / cfg["file"])
+    families.of(config)           # a family without its file fails here
+    return Cell(name=name, chips=w["chips"], config=config,
                 traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
                 limits=load_json(here / "workloads" / f"{name}.json")["limits"],
                 end_to_end=e2e, per_layer=layer)

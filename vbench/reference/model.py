@@ -1,20 +1,23 @@
-"""The plain reference of the decoder-only families the cells run: dense
-GQA (granite-3-2b) and the hybrid of parallel attention and Mamba heads
-(hymba-1.5b), in float32, written from the published equations.
+"""The plain reference's shared pieces, in float32, written from the
+published equations; each family (``families/<family>.py``, found by the
+configuration's ``family``) builds its blocks from them.
 
 Weights come as {dotted name: tensor} with the program's stacked layout
 (``layers.attn.wq`` is (L, d, H, hd), ``layers.ssm.conv_w`` (L, d_conv,
-Di)), made by the benchmark, not by the program.  Each block is
+Di)), made by the benchmark, not by the program, in the dtype the program
+holds them in (float32 in training, bfloat16 in serving).  Each weight is
+upcast to float32 where it is used, before anything else touches it, one
+layer's slice at a time (``layer``; one expert's, where a layer holds
+experts): the upcast is exact, and no stacked leaf is ever upcast whole.
 
-    h = x + attn(norm1(x))                            (dense)
-    h = x + (norm_a(attn(n)) + norm_s(mamba(n))) / 2  (hybrid, n = norm1(x))
-    x' = h + down(silu(n2 gate) * (n2 up)),  n2 = norm2(h)
-
-with RMS norms, rotary positions on q and k (the halves rotated), causal
-softmax attention at scale 1/sqrt(hd) whose query head h reads KV head
-h // (H/K), and Mamba 1's selective scan (Gu and Dao, 2023): a causal
-depthwise conv, dt = softplus(x W_dt + b), A = -exp(A_log),
-h_t = exp(dt A) h_{t-1} + dt x B_t, y = C_t h_t + D x, times silu(z).
+The pieces: RMS norms; rotary positions on q and k (the halves rotated);
+causal softmax attention at scale 1/sqrt(hd) whose query head h reads KV
+head h // (H/K), in blocks of queries whose scores take at most
+``SCORE_BYTES`` (one block while all of them fit), each row's softmax
+over all its keys; Mamba 1's selective scan (Gu and Dao, 2023): a causal
+depthwise conv, dt = softplus(x W_dt + b), A = -exp(A_log), h_t =
+exp(dt A) h_{t-1} + dt x B_t, y = C_t h_t + D x, times silu(z); the
+SwiGLU feed-forward, down(silu(x gate) * (x up)).
 
 The projections go through ``prec.mm``, so the control can compute them
 in a lower precision (``precision.py``); everything else is float32.
@@ -27,7 +30,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from vbench.reference import families
 from vbench.reference.precision import Precision
+
+SCORE_BYTES = 4 * 2**30     # the most scores one block of queries makes
+
+
+def layer(w: dict, key: str, *index: int) -> torch.Tensor:
+    """Leaf ``key``'s slice at ``index`` (a layer's; a layer's expert's),
+    upcast to float32: a float32 leaf's slice is itself."""
+    return w[key][index].float()
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -47,22 +59,43 @@ def rotary(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def attention(c: dict, w: dict, i: int, x: torch.Tensor,
-              prec: Precision) -> torch.Tensor:
+def causal_softmax_attention(q, k, v, score_bytes: int = SCORE_BYTES):
+    """q, k, v (B, T, H, hd), K and V repeated to H heads -> (B, T, H, hd).
+    The scores run in blocks of as many queries as fit in ``score_bytes``
+    (all T of them while the whole (B, H, T, T) fits), each block's rows
+    over the keys up to its last query."""
+    b, t, h, hd = q.shape
+    rows = max(1, score_bytes // (b * h * t * 4))
+    keys = torch.arange(t, device=q.device)
+    out = []
+    for s in range(0, t, rows):
+        e = min(s + rows, t)
+        scores = torch.einsum("bthd,bshd->bhts", q[:, s:e], k[:, :e]) \
+            / math.sqrt(hd)
+        causal = keys[None, :e] <= keys[s:e, None]
+        p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+        out.append(torch.einsum("bhts,bshd->bthd", p, v[:, :e]))
+    return torch.cat(out, 1)
+
+
+def attention(c: dict, w: dict, i: int, x: torch.Tensor, prec: Precision,
+              score_bytes: int = SCORE_BYTES) -> torch.Tensor:
+    """Layer ``i``'s rotary GQA attention of x (B, T, d); ``score_bytes``
+    as in ``causal_softmax_attention``."""
     b, t, d = x.shape
     h, kh = c["num_attention_heads"], c["num_key_value_heads"]
     hd = c.get("head_dim") or d // h
-    q = prec.mm(x, w["layers.attn.wq"][i].reshape(d, h * hd)).view(b, t, h, hd)
-    k = prec.mm(x, w["layers.attn.wk"][i].reshape(d, kh * hd)).view(b, t, kh, hd)
-    v = prec.mm(x, w["layers.attn.wv"][i].reshape(d, kh * hd)).view(b, t, kh, hd)
+    q = prec.mm(x, layer(w, "layers.attn.wq", i).reshape(d, h * hd)) \
+        .view(b, t, h, hd)
+    k = prec.mm(x, layer(w, "layers.attn.wk", i).reshape(d, kh * hd)) \
+        .view(b, t, kh, hd)
+    v = prec.mm(x, layer(w, "layers.attn.wv", i).reshape(d, kh * hd)) \
+        .view(b, t, kh, hd)
     q, k = rotary(q, c["rope_theta"]), rotary(k, c["rope_theta"])
     k = k.repeat_interleave(h // kh, dim=2)
     v = v.repeat_interleave(h // kh, dim=2)
-    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
-    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-    p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    o = torch.einsum("bhts,bshd->bthd", p, v).reshape(b, t, h * hd)
-    return prec.mm(o, w["layers.attn.wo"][i].reshape(h * hd, d))
+    o = causal_softmax_attention(q, k, v, score_bytes).reshape(b, t, h * hd)
+    return prec.mm(o, layer(w, "layers.attn.wo", i).reshape(h * hd, d))
 
 
 def selective_scan(dt, xc, bm, cm, a, chunk: int = 32):
@@ -93,45 +126,40 @@ def selective_scan(dt, xc, bm, cm, a, chunk: int = 32):
 
 def mamba(c: dict, w: dict, i: int, x: torch.Tensor,
           prec: Precision) -> torch.Tensor:
+    """Layer ``i``'s Mamba 1 mixer of x (B, T, d)."""
     n, r = c["mamba_d_state"], c["mamba_dt_rank"]
-    xr, z = prec.mm(x, w["layers.ssm.in_proj"][i]).chunk(2, dim=-1)
-    cw = w["layers.ssm.conv_w"][i]                          # (dc, Di)
+    xr, z = prec.mm(x, layer(w, "layers.ssm.in_proj", i)).chunk(2, dim=-1)
+    cw = layer(w, "layers.ssm.conv_w", i)                   # (dc, Di)
     dc, t = cw.shape[0], x.shape[1]
     xp = F.pad(xr, (0, 0, dc - 1, 0))
     conv = sum(cw[j] * xp[:, j:j + t] for j in range(dc))
-    xc = F.silu(conv + w["layers.ssm.conv_b"][i])
-    dbc = prec.mm(xc, w["layers.ssm.x_proj"][i])
+    xc = F.silu(conv + layer(w, "layers.ssm.conv_b", i))
+    dbc = prec.mm(xc, layer(w, "layers.ssm.x_proj", i))
     dt, bm, cm = torch.split(dbc, [r, n, n], dim=-1)
-    dt = F.softplus(prec.mm(dt, w["layers.ssm.dt_proj"][i])
-                    + w["layers.ssm.dt_bias"][i])
-    a = -torch.exp(w["layers.ssm.A_log"][i])
-    y = selective_scan(dt, xc, bm, cm, a) + xc * w["layers.ssm.D"][i]
-    return prec.mm(y * F.silu(z), w["layers.ssm.out_proj"][i])
+    dt = F.softplus(prec.mm(dt, layer(w, "layers.ssm.dt_proj", i))
+                    + layer(w, "layers.ssm.dt_bias", i))
+    a = -torch.exp(layer(w, "layers.ssm.A_log", i))
+    y = selective_scan(dt, xc, bm, cm, a) + xc * layer(w, "layers.ssm.D", i)
+    return prec.mm(y * F.silu(z), layer(w, "layers.ssm.out_proj", i))
 
 
-def block(c: dict, w: dict, i: int, x: torch.Tensor,
-          prec: Precision) -> torch.Tensor:
-    eps = c["rms_norm_eps"]
-    n = rms_norm(x, w["layers.ln1"][i], eps)
-    a = attention(c, w, i, n, prec)
-    if c["family"] == "hybrid":
-        s = mamba(c, w, i, n, prec)
-        a = 0.5 * (rms_norm(a, w["layers.norm_attn"][i], eps)
-                   + rms_norm(s, w["layers.norm_ssm"][i], eps))
-    x = x + a
-    n2 = rms_norm(x, w["layers.ln2"][i], eps)
-    hidden = F.silu(prec.mm(n2, w["layers.mlp.w_gate"][i])) \
-        * prec.mm(n2, w["layers.mlp.w_up"][i])
-    return x + prec.mm(hidden, w["layers.mlp.w_down"][i])
+def swiglu(w: dict, i: int, x: torch.Tensor, prec: Precision) -> torch.Tensor:
+    """Layer ``i``'s SwiGLU feed-forward of x (B, T, d)."""
+    hidden = F.silu(prec.mm(x, layer(w, "layers.mlp.w_gate", i))) \
+        * prec.mm(x, layer(w, "layers.mlp.w_up", i))
+    return prec.mm(hidden, layer(w, "layers.mlp.w_down", i))
+
+
+def embed(w: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, T) -> their rows of the embedding (B, T, d)."""
+    return w["embed"][tokens.long()].float()
 
 
 def hidden(c: dict, w: dict, tokens: torch.Tensor,
            prec: Precision) -> torch.Tensor:
-    """tokens (B, T) -> final-normed hidden states (B, T, d)."""
-    x = w["embed"][tokens.long()]
-    for i in range(c["num_hidden_layers"]):
-        x = block(c, w, i, x, prec)
-    return rms_norm(x, w["final_norm"], c["rms_norm_eps"])
+    """tokens (B, T) -> final-normed hidden states (B, T, d), by the
+    blocks of the configuration's family."""
+    return families.of(c).hidden(c, w, tokens, prec)
 
 
 def logits(c: dict, w: dict, x: torch.Tensor, prec: Precision) -> torch.Tensor:
@@ -140,8 +168,8 @@ def logits(c: dict, w: dict, x: torch.Tensor, prec: Precision) -> torch.Tensor:
     transpose."""
     v = c["vocab_size"]
     if c["tie_word_embeddings"]:
-        return prec.mm(x, w["embed"][:v].t())
-    return prec.mm(x, w["lm_head"][:, :v])
+        return prec.mm(x, w["embed"][:v].float().t())
+    return prec.mm(x, w["lm_head"].float()[:, :v])
 
 
 def loss(c: dict, w: dict, tokens: torch.Tensor, labels: torch.Tensor,

@@ -1,5 +1,6 @@
 """The reference of a serving cell: one full forward pass over a request's
-prompt and the tokens it was served, in float32, and how far below the
+prompt and the tokens it was served, in float32 from the served weights
+(each upcast where it is used, ``model.layer``), and how far below the
 reference's best logit each served token lies.
 """
 from __future__ import annotations

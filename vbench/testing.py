@@ -1,8 +1,9 @@
 """What the CPU tests of whole runs share: the cells cut to a size a test
 run holds, and what a sound run's checks must show.
 
-The sizes are the cells' own configurations cut to a width of 128 and
-two layers, so a run takes seconds; the limits are the cells' own
+The sizes are the cells' own configurations cut as their family's file
+says (``TINY``: a width of 128 and two layers, or one period at tiny
+widths), so a run takes seconds; the limits are the cells' own
 (``workloads/<cell>.json``).  The harness's look for a card is skipped:
 the tests call ``vbench.run.execute`` and ``vbench.control.readings``
 with the CPU, where the port takes its kernels' plain versions."""
@@ -13,6 +14,7 @@ import sys
 import torch
 
 from vbench import harness
+from vbench.reference import families
 
 if str(harness.ROOT / "src") not in sys.path:   # the port, as the run has it
     sys.path.insert(0, str(harness.ROOT / "src"))
@@ -31,11 +33,13 @@ def tiny(name: str, traffic: str = None):
     if traffic is not None:
         cell.traffic = harness.load_json(harness.HERE / "traffic"
                                          / f"{traffic}.json")
-    c = dict(cell.config, hidden_size=128, num_attention_heads=4,
-             num_key_value_heads=2, head_dim=32, intermediate_size=256,
-             vocab_size=256, num_hidden_layers=2)
-    if c["family"] == "hybrid":
-        c.update(mamba_d_state=4, mamba_dt_rank=8)
+    return cut(cell)
+
+
+def cut(cell):
+    """``cell`` with its configuration cut to its family's ``TINY`` and
+    its traffic to a few short requests or rows."""
+    c = dict(cell.config, **families.of(cell.config).TINY)
     tr = dict(cell.traffic)
     if tr["driver"] == "train":
         tr.update(seq=32, batch=2)

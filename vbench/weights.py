@@ -2,12 +2,16 @@
 large draw: the program and the reference are handed the same values.
 
 A leaf's values depend on its key (the program's snapshot key, such as
-``.params['layers']['attn']['wq']``) and shape only, by these rules: norm
-scales, ``D`` and ``dt_bias`` are ones, biases (``conv_b``, ``bq``, ``bk``,
-``bv``) zeros, ``A_log`` is log(1 .. d_state) along its last dim (Mamba's
-initialisation), and every other leaf (the matrices and the embedding) is
-drawn from N(0, 0.02^2).  The draws follow the keys' sorted order, so one
-seed gives the same tree whichever way it is walked.
+``.params['layers']['attn']['wq']``), its shape and the configuration's
+family only, by these rules: the norm scales every family has (``ln1``,
+``ln2``, ``final_norm``) and Mamba's ``D`` and ``dt_bias`` are ones, the
+attention and conv biases (``bq``, ``bk``, ``bv``, ``conv_b``) zeros, as
+are the leaves the family's file names in its ``ONES`` (ones) and
+``ZEROS`` (zeros; ``reference/families/<family>.py``); ``A_log`` is log(1 .. d_state)
+along its last dim (Mamba's initialisation), and every other leaf (the
+matrices and the embedding) is drawn from N(0, 0.02^2).  The draws follow
+the keys' sorted order, so one seed gives the same tree whichever way it
+is walked.
 """
 from __future__ import annotations
 
@@ -17,9 +21,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from vbench.reference import families
+
 STD = 0.02
-ONES = {"ln1", "ln2", "final_norm", "norm_attn", "norm_ssm", "D", "dt_bias"}
-ZEROS = {"conv_b", "bq", "bk", "bv"}
+ONES = frozenset({"ln1", "ln2", "final_norm", "D", "dt_bias"})
+ZEROS = frozenset({"conv_b", "bq", "bk", "bv"})
 
 
 def leaf_name(key: str) -> str:
@@ -28,30 +34,33 @@ def leaf_name(key: str) -> str:
     return names[-1] if names else key.strip(".")
 
 
-def rule(key: str) -> str:
-    name = leaf_name(key)
-    if name in ONES:
+def rule(key: str, c: dict) -> str:
+    """How leaf ``key`` of configuration ``c`` is made."""
+    name, fam = leaf_name(key), families.of(c)
+    if name in ONES or name in fam.ONES:
         return "ones"
-    if name in ZEROS:
+    if name in ZEROS or name in fam.ZEROS:
         return "zeros"
     if name == "A_log":
         return "slow_decay"
     return "normal"
 
 
-def make(shapes: Dict[str, Tuple[int, ...]], seed: int, device,
+def make(c: dict, shapes: Dict[str, Tuple[int, ...]], seed: int, device,
          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """{key: tensor} for ``shapes`` ({key: shape}), every normal leaf a
-    slice of one draw from a generator on ``device`` seeded by ``seed``."""
+    """{key: tensor} for ``shapes`` ({key: shape}) of configuration ``c``,
+    every normal leaf a slice of one draw from a generator on ``device``
+    seeded by ``seed``."""
     keys = sorted(shapes)
-    normal = [k for k in keys if rule(k) == "normal"]
+    kinds = {k: rule(k, c) for k in keys}
+    normal = [k for k in keys if kinds[k] == "normal"]
     total = sum(math.prod(shapes[k]) for k in normal)
     gen = torch.Generator(device=device).manual_seed(seed % 2**63)
     flat = torch.randn(total, generator=gen, device=device,
                        dtype=dtype).mul_(STD)
     out, off = {}, 0
     for k in keys:
-        shape, kind = shapes[k], rule(k)
+        shape, kind = shapes[k], kinds[k]
         if kind == "normal":
             n = math.prod(shape)
             out[k] = flat[off:off + n].view(shape)
